@@ -1,13 +1,13 @@
-"""stencil_tpu — a TPU-native structured-grid stencil framework.
+"""stencil_tpu — a JAX structured-grid stencil framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the Sunway
-SW26010 ``athread`` stencil benchmark suite (Pluto-Zy/stencil, surveyed in
+A from-scratch JAX/XLA rebuild of the capabilities of the Sunway SW26010
+``athread`` stencil benchmark suite (Pluto-Zy/stencil, surveyed in
 ``SURVEY.md``): halo'd grids with Dirichlet boundary conditions, 2D/3D
 star/box stencil specs of arbitrary radius, a float64 golden model with
-differential checking, Pallas kernels streaming VMEM tiles with double
-buffering and temporal blocking, multi-chip halo exchange over ICI via
-``shard_map`` + ``ppermute``, and a typed config + benchmark driver with
-GLUPS/roofline reporting.
+differential checking, fused XLA sweeps, multi-device halo exchange via
+``shard_map`` + ``ppermute``, out-of-core streaming, the solver stack
+(multigrid, CG, BiCGStab, GMRES), and a typed config + benchmark driver
+with GLUPS/roofline reporting.
 """
 
 __version__ = "0.2.0"

@@ -92,8 +92,8 @@ class StencilSpec:
         field, which is what makes Neumann (zero-flux) faces compatible
         with temporal blocking: evolving the mirror-extended field keeps
         it mirror-extended, so ``k*r``-deep mirrored ghosts stay exact
-        for ``k`` in-kernel sweeps (the same deep-halo argument as the
-        sharded paths' mesh-internal faces). All named specs (star/box
+        for ``k`` sweeps per chunk round trip (the streamed method's
+        deep-halo argument). All named specs (star/box
         Jacobi, high-order Laplacian) are symmetric in every dim."""
         wmap = {}
         for off, w in zip(self.offsets, self.weights):

@@ -22,7 +22,7 @@ Two dimensionally-split explicit schemes over a constant velocity ``v``:
   standard practice for structured-grid transport).
 
 Both are plain ``StencilSpec``s, so every method in the registry — XLA,
-both Pallas kernels, the sharded paths — runs them unchanged, and the
+the sharded paths, streaming — runs them unchanged, and the
 float64 golden model verifies them like any other spec.
 """
 

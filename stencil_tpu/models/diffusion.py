@@ -13,10 +13,7 @@ with the face diffusivity ``a_face`` the harmonic mean of the two cell
 values (flux continuity across material interfaces). As a stencil that is
 ``T = 2*ndim + 1`` taps whose weights are fields: neighbor tap d+/- gets
 ``(dt/h^2) * a_face``, the center gets ``1 - sum(neighbor weights)``.
-``ops/xla.py:apply_fields`` evaluates it (one fused XLA pass; the Pallas
-kernels would need T coefficient window streams per tile — the measured
-single-source window already costs ~10% at k=8, so a fused-field Pallas
-path is future work, to be justified by a workload).
+``ops/xla.py:apply_fields`` evaluates it in one fused XLA pass.
 """
 
 from __future__ import annotations
@@ -131,70 +128,10 @@ class HeterogeneousDiffusion:
         fields[0] = 1.0 - sum(fields[1:])
         return tuple(offsets), np.stack(fields)
 
-    def runner(self, method: str = "auto", sweeps_per_call: int = 8,
-               tiles=None, interpret=None) -> Runner:
-        """Registry-compatible Runner; plugs into ``solver.solve`` for
-        steady states.
-
-        ``method='pallas_tiled'`` (3D fp32) runs the variable-
-        coefficient TILED kernel: the cell-centered a(x) streams as one
-        extra window per tile and the harmonic face weights are
-        synthesized in-register, with full temporal blocking
-        (``sweeps_per_call``) — measured v5e 256^3 k=8: 62.6 GLUPS vs
-        8.2 for the fused-XLA path. ``'xla'`` is the rank-general
-        fallback; ``'auto'`` picks pallas whenever it applies. A
-        dynamic (periodic/Neumann) LANE dim needs the XLA path (the
-        coeff kernel synthesizes the lane boundary in-register)."""
+    def runner(self) -> Runner:
+        """Registry-compatible Runner (the fused per-point-weight XLA
+        sweep); plugs into ``solver.solve`` for steady states."""
         import jax.numpy as jnp
-
-        if method not in ("auto", "xla", "pallas_tiled"):
-            raise ValueError(f"unknown method {method!r}")
-        use_pallas = method == "pallas_tiled"
-        if method == "auto":
-            use_pallas = (
-                self.ndim == 3
-                and np.dtype(self.dtype).itemsize == 4
-                and min(self.shape) >= 8
-                and not self.bc.dynamic_mask(3)[2])
-        if use_pallas:
-            from stencil_tpu.core.spec import get_spec
-            from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
-            if interpret is None:
-                import jax
-
-                try:
-                    interpret = jax.devices()[0].platform != "tpu"
-                except Exception:
-                    interpret = True
-            dt = self.dt if self.dt is not None else self.stable_dt
-            if dt > self.stable_dt * (1 + 1e-12):
-                raise ValueError(
-                    f"unstable: dt={dt:g} > h^2/(2*ndim*max(a)) = "
-                    f"{self.stable_dt:g}")
-            lam = dt / self.h ** 2
-            k = int(sweeps_per_call)
-            dyn = self.bc.dynamic_mask(3)
-            if dyn[2]:
-                raise ValueError(
-                    "a periodic/Neumann lane (last) dim needs the XLA "
-                    "variable-coefficient path (method='xla')")
-            m = TiledPallasStencil(
-                get_spec("jacobi7"), tuple(self.shape), self.dtype,
-                sweeps_per_call=k, tiles=tiles, interpret=interpret,
-                coeff=np.asarray(self.a, np.dtype(self.dtype)),
-                coeff_scales=(lam, 1.0, -lam))
-            return Runner(
-                name=f"hetero_diffusion_pallas(k={k})",
-                iterate=m.iterate,
-                granularity=k,
-                description="variable-coefficient FTCS diffusion on "
-                            "the tiled kernel (streamed a(x), "
-                            "in-register harmonic face weights)",
-                plan_info={"tiles": (m.plan.s0, m.plan.t1),
-                           "tap_mode": "coeff",
-                           "sweeps_per_call": k},
-            )
 
         from stencil_tpu.ops import xla
 
@@ -263,20 +200,6 @@ class HeterogeneousPoissonProblem:
     h: Optional[float] = None
     bc: Optional[DirichletBC] = None
     dtype: str = "float32"
-    # operator matvec engine: 'xla' (rank-general fused pass), 'pallas'
-    # (3D fp32: the tiled coeff kernel at k=1 — streams a(x),
-    # synthesizes the face weights in-register), or 'auto'. MEASURED
-    # v5e 255^3 (r5 campaign): 'auto' resolves to XLA — at k=1 the
-    # kernel's layout pad/unpad per matvec costs more than its sweep
-    # saves (BiCGStab+opmg solve: 488 ms pallas vs 278 ms xla, same 11
-    # iterations); the kernel's 7.6x win (62.6 vs 8.2 GLUPS) belongs to
-    # the k>=4 temporally-blocked MARCHING runner
-    # (HeterogeneousDiffusion.runner), which amortizes one layout
-    # round trip over k sweeps. 'pallas' stays available explicitly.
-    # ``interpret=None`` auto-detects the backend (CPU tests run the
-    # kernel in interpreter mode).
-    kernel: str = "auto"
-    interpret: Optional[bool] = None
 
     def __post_init__(self):
         a = np.asarray(self.a, np.float64)
@@ -295,45 +218,11 @@ class HeterogeneousPoissonProblem:
                 "the steady heterogeneous operator needs Dirichlet "
                 "walls (periodic/Neumann annihilate constants; march "
                 "HeterogeneousDiffusion in time instead)")
-        if self.kernel not in ("auto", "xla", "pallas"):
-            raise ValueError(
-                f"unknown kernel {self.kernel!r} (auto | xla | pallas)")
-        use_pallas = self.kernel == "pallas"
-        if use_pallas and (len(self.shape) != 3
-                           or np.dtype(self.dtype).itemsize != 4):
-            raise ValueError(
-                "kernel='pallas' needs a 3D fp32 problem")
-        object.__setattr__(self, "_use_pallas", use_pallas)
         object.__setattr__(self, "_data_cache", None)
-        object.__setattr__(self, "_plan_cache", None)
 
     @property
     def ndim(self) -> int:
         return len(self.shape)
-
-    def _pallas_plan(self):
-        if self._plan_cache is None:
-            from stencil_tpu.core.spec import get_spec
-            from stencil_tpu.ops.pallas_tiled import make_tiled_plan
-
-            inv_h2 = 1.0 / (float(self.h) ** 2)
-            object.__setattr__(
-                self, "_plan_cache",
-                make_tiled_plan(get_spec("jacobi7"), tuple(self.shape),
-                                self.dtype, sweeps_per_call=1,
-                                tap_mode="coeff",
-                                coeff_scales=(-inv_h2, 0.0, inv_h2)))
-        return self._plan_cache
-
-    def _interpret(self) -> bool:
-        if self.interpret is not None:
-            return bool(self.interpret)
-        import jax
-
-        try:
-            return jax.devices()[0].platform != "tpu"
-        except Exception:
-            return True
 
     def operator_fields(self):
         """(offsets, stacked float64 fields) of the operator ``A``."""
@@ -355,31 +244,18 @@ class HeterogeneousPoissonProblem:
     # -- matrix-free operator protocol --------------------------------
 
     def operator_data(self):
-        """The operator's runtime arrays as ONE cached pytree: the
-        stacked weight fields (always — the Jacobi diagonal and the
-        XLA matvec read them), plus the kernel-layout padded
-        coefficient when the pallas matvec is active. Threaded through
+        """The operator's runtime arrays, cached: the stacked weight
+        fields the matvec and the Jacobi diagonal read. Threaded through
         the jitted solves as arguments, never closed over."""
         if self._data_cache is None:
             import jax.numpy as jnp
 
             _, fields = self.operator_fields()
-            data = jnp.asarray(fields, self.dtype)
-            if self._use_pallas:
-                from stencil_tpu.ops.pallas_tiled import pad_coeff
-
-                data = (data, pad_coeff(self._pallas_plan(), self.a,
-                                        self.bc))
-            object.__setattr__(self, "_data_cache", data)
+            object.__setattr__(self, "_data_cache",
+                               jnp.asarray(fields, self.dtype))
         return self._data_cache
 
     def operator_apply(self, padded, data):
-        if self._use_pallas:
-            from stencil_tpu.ops.pallas_tiled import _cached_coeff_apply
-
-            apply = _cached_coeff_apply(self._pallas_plan(),
-                                        self._interpret())
-            return apply(padded, data[1])
         from stencil_tpu.ops import xla
 
         nd = self.ndim
@@ -394,8 +270,7 @@ class HeterogeneousPoissonProblem:
     def operator_inv_diagonal(self, data):
         if data is None:
             raise TypeError("field operator diagonal needs data")
-        fields = data[0] if self._use_pallas else data
-        return 1.0 / fields[0]
+        return 1.0 / data[0]
 
     def with_discretization(self, shape,
                             h) -> "HeterogeneousPoissonProblem":
@@ -450,16 +325,11 @@ class HeterogeneousPoissonProblem:
         its ``CGResult``. The operator is SPD, but the field-operator
         Krylov path is the BiCGStab one — its extra matvec per
         iteration is the price of one code path for constant AND field
-        operators. A distributed solve (``mesh``) needs the GSPMD XLA
-        matvec; a pallas-kernel problem transparently re-solves
-        through its XLA twin there."""
+        operators. ``mesh`` distributes the solve (GSPMD)."""
         from stencil_tpu.krylov import BiCGStab
         from stencil_tpu.multigrid import OperatorMultigrid
 
-        prob = self
-        if mesh is not None and self._use_pallas:
-            prob = dataclasses.replace(self, kernel="xla")
-        pre = OperatorMultigrid(prob) if preconditioned else None
-        return BiCGStab(prob, preconditioner=pre).solve(
+        pre = OperatorMultigrid(self) if preconditioned else None
+        return BiCGStab(self, preconditioner=pre).solve(
             f, tolerance=tolerance, max_iterations=max_iterations,
             mesh=mesh, dim=dim)

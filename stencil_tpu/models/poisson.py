@@ -135,145 +135,42 @@ class PoissonProblem:
             np.asarray(grid.interior(), np.float64))
         return float(np.max(np.abs(r)))
 
-    def runner(self, f, method: str = "xla", sweeps_per_call: int = 8,
-               interpret: bool = False, autotune=False,
-               **plan_kw) -> Runner:
+    def runner(self, f) -> Runner:
         """A registry-compatible Runner whose every sweep applies the
-        fused source: plugs straight into ``solver.solve``.
+        fused source: plugs straight into ``solver.solve``."""
+        import jax
+        import jax.numpy as jnp
 
-        ``method='xla'`` is the always-available fused-slice path;
-        ``method='pallas_tiled'`` (3D only) runs the temporal-blocked
-        tiled kernel with the source streamed per tile window — the
-        full-speed path (the kernel sustains >100 GLUPS on v5e where
-        the XLA sweep reaches ~11; the extra source window amortizes
-        over ``sweeps_per_call`` sweeps). ``'auto'`` picks the tiled
-        kernel for 3D problems."""
-        if method == "auto":
-            method = "pallas_tiled" if self.ndim == 3 else "pallas_slab"
-        if method == "xla":
-            import jax.numpy as jnp
+        from stencil_tpu.ops import xla
 
-            from stencil_tpu.ops import xla
-
-            import jax
-
-            if isinstance(f, jax.Array):
-                # device-resident source: scale on device (no host
-                # round trip — see core.grid.as_device_array)
-                scaled = jnp.asarray(f, self.dtype) * jnp.asarray(
-                    self.source_scale, dtype=self.dtype)
-            else:
-                scaled = jnp.asarray(np.asarray(f) * self.source_scale,
-                                     dtype=self.dtype)
-            if scaled.shape != tuple(self.shape):
-                raise ValueError(
-                    f"source shape {scaled.shape} != interior "
-                    f"{self.shape}")
-            return Runner(
-                name=f"poisson_xla({self.ndim}d)",
-                iterate=lambda g, n: xla.iterate_source_dynamic(
-                    g, self.spec, jnp.int32(n), scaled),
-                description="Jacobi relaxation of laplacian(u)=f "
-                            "(fused source term)",
-            )
-        if method == "pallas_tiled":
-            if self.ndim != 3:
-                raise ValueError(
-                    "the tiled source kernel is 3D-only; use "
-                    "method='xla' for 2D Poisson problems")
-            from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
-            if autotune and "tiles" not in plan_kw and not interpret:
-                # source plans tune separately (their measured v5e
-                # winner differs from the homogeneous one — the doubled
-                # input stream shifts the optimum toward smaller
-                # windows); a cache hit applies instantly
-                from stencil_tpu import autotune as at
-
-                won = at.autotune(self.spec, self.shape, self.dtype,
-                                  sweeps_per_call,
-                                  force=(autotune == "force"),
-                                  has_source=True)
-                if won:
-                    plan_kw.setdefault("tiles", tuple(won["tiles"]))
-                    plan_kw.setdefault("tap_mode", won["tap_mode"])
-            m = TiledPallasStencil(
-                self.spec, self.shape, dtype=self.dtype,
-                sweeps_per_call=sweeps_per_call, interpret=interpret,
-                source=f, source_scale=self.source_scale, **plan_kw)
-            return Runner(
-                name=f"poisson_tiled(k={sweeps_per_call})",
-                iterate=m.iterate,
-                granularity=sweeps_per_call,
-                description="Jacobi relaxation of laplacian(u)=f on the "
-                            "temporal-blocked tiled kernel (source "
-                            "streamed per tile window)",
-                plan_info={"kernel": "pallas_tiled",
-                           "tiles": (m.plan.s0, m.plan.t1),
-                           "tap_mode": m.plan.tap_mode,
-                           "has_source": True},
-            )
-        if method == "pallas_slab":
-            if self.ndim != 2:
-                raise ValueError(
-                    "the slab source kernel is 2D-only; use "
-                    "method='pallas_tiled' for 3D Poisson problems")
-            from stencil_tpu.ops.pallas import PallasStencil
-
-            m = PallasStencil(
-                self.spec, self.shape, dtype=self.dtype,
-                sweeps_per_call=sweeps_per_call, interpret=interpret,
-                source=f, source_scale=self.source_scale, **plan_kw)
-            return Runner(
-                name=f"poisson_slab(k={sweeps_per_call})",
-                iterate=m.iterate,
-                granularity=sweeps_per_call,
-                description="Jacobi relaxation of laplacian(u)=f on the "
-                            "2D slab kernel (source streamed per slab "
-                            "window)",
-                plan_info={"kernel": "pallas_slab",
-                           "slab": m.plan.slab,
-                           "tap_mode": m.plan.tap_mode,
-                           "has_source": True},
-            )
-        raise ValueError(f"unknown Poisson method {method!r} "
-                         "(xla | pallas_tiled | pallas_slab | auto)")
-
-    def sharded_runner(self, f, mesh, sweeps_per_call: int = 8,
-                       axis_names=("x",), interpret: bool = False,
-                       **kw) -> Runner:
-        """Distributed Poisson relaxation: per-device tiled source
-        kernel + ppermute halo exchange over a 1D/2D device mesh (3D
-        only). The static source's sharded-dim ghosts are exchanged once
-        per iterate call (``parallel/pallas_sharded.py``)."""
-        if self.ndim != 3:
-            raise ValueError("sharded Poisson is 3D-only")
-        from stencil_tpu.parallel.pallas_sharded import (
-            ShardedPallasStencil,
-        )
-
-        m = ShardedPallasStencil(
-            self.spec, self.shape, dtype=self.dtype,
-            sweeps_per_call=sweeps_per_call, axis_names=tuple(axis_names),
-            interpret=interpret, has_source=True, **kw)
+        if isinstance(f, jax.Array):
+            # device-resident source: scale on device (no host
+            # round trip — see core.grid.as_device_array)
+            scaled = jnp.asarray(f, self.dtype) * jnp.asarray(
+                self.source_scale, dtype=self.dtype)
+        else:
+            scaled = jnp.asarray(np.asarray(f) * self.source_scale,
+                                 dtype=self.dtype)
+        if scaled.shape != tuple(self.shape):
+            raise ValueError(
+                f"source shape {scaled.shape} != interior "
+                f"{self.shape}")
         return Runner(
-            name=f"poisson_sharded(k={sweeps_per_call})",
-            iterate=lambda g, n: m.iterate(
-                g, n, mesh, source=f, source_scale=self.source_scale),
-            granularity=sweeps_per_call,
-            description="distributed Jacobi relaxation of laplacian(u)=f "
-                        "(per-device tiled source kernel + ppermute "
-                        "exchange)",
+            name=f"poisson_xla({self.ndim}d)",
+            iterate=lambda g, n: xla.iterate_source_dynamic(
+                g, self.spec, jnp.int32(n), scaled),
+            description="Jacobi relaxation of laplacian(u)=f "
+                        "(fused source term)",
         )
 
     def solve(self, f, tolerance: float = 1e-6,
               max_iterations: int = 200_000, check_every: int = 200,
-              progress=None, method: str = "xla", **runner_kw):
+              progress=None):
         """Relax to the discrete solution of ``laplacian(u) = f``;
         returns ``solver.SolveResult``."""
         from stencil_tpu import solver
 
-        return solver.solve(self.runner(f, method=method, **runner_kw),
+        return solver.solve(self.runner(f),
                             self.initial_grid(),
                             tolerance=tolerance,
                             max_iterations=max_iterations,

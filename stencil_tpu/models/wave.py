@@ -9,8 +9,8 @@ second-order: the standard leapfrog update reads TWO time levels,
 
 where ``S`` is a radius-1 star WITH center: center weight
 ``2 - 2*ndim*s^2``, neighbor weights ``s^2``, with the Courant number
-``s = c*dt/h`` (stable iff ``ndim * s^2 <= 1``). Expressed TPU-natively:
-the stencil spec machinery provides ``S`` (one fused XLA pass), the
+``s = c*dt/h`` (stable iff ``ndim * s^2 <= 1``). The stencil spec
+machinery provides ``S`` (one fused XLA pass), the
 two-level recursion is a ``lax.fori_loop`` carrying a ``(prev, cur)``
 HaloGrid pair, and the subtraction fuses into the same pass — one extra
 interior read per point, no extra HBM round trip.
@@ -108,65 +108,22 @@ class WaveEquation:
 
     # -- time stepping ---------------------------------------------------------
 
-    def simulate(self, prev: HaloGrid, cur: HaloGrid, steps: int,
-                 method: str = "xla", **kw) -> Tuple[HaloGrid, HaloGrid]:
-        """Advance ``steps`` leapfrog steps; returns the new
-        ``(prev, cur)`` pair (``cur`` is ``u_{n+steps}``).
-
-        ``method='pallas_tiled'`` (3D only) runs the temporal-blocked
-        two-level kernel — ``sweeps_per_call`` leapfrog steps per HBM
-        round trip with both levels streamed per tile window
-        (``ops/pallas_tiled.py`` ``two_level``); ``'xla'`` is the
-        always-available fused pass."""
+    def simulate(self, prev: HaloGrid, cur: HaloGrid,
+                 steps: int) -> Tuple[HaloGrid, HaloGrid]:
+        """Advance ``steps`` leapfrog steps (one fused XLA pass each);
+        returns the new ``(prev, cur)`` pair (``cur`` is
+        ``u_{n+steps}``)."""
         import jax.numpy as jnp
 
-        if method == "xla":
-            return _simulate_jit(prev, cur, self.spec, jnp.int32(steps))
-        if method == "pallas_tiled":
-            return self._simulate_tiled(prev, cur, steps, **kw)
-        raise ValueError(f"unknown wave method {method!r} "
-                         "(xla | pallas_tiled)")
+        return _simulate_jit(prev, cur, self.spec, jnp.int32(steps))
 
-    def _simulate_tiled(self, prev: HaloGrid, cur: HaloGrid, steps: int,
-                        sweeps_per_call: int = 8, interpret: bool = False,
-                        **plan_kw) -> Tuple[HaloGrid, HaloGrid]:
-        from stencil_tpu.ops.pallas_tiled import (
-            _cached_wave_iterate, make_tiled_plan,
-        )
-
-        if self.ndim != 3:
-            raise ValueError("the two-level tiled kernel is 3D-only; "
-                             "use method='xla' for 2D waves")
-        bc = cur.bc
-        dyn = bc.dynamic_mask(3)
-        if dyn[2]:
-            raise ValueError(
-                "a periodic/Neumann lane (last) dim is unsupported on "
-                "the two-level tiled kernel (use method='xla')")
-
-        def advance(p, c, k, n_outer):
-            plan = make_tiled_plan(self.spec, self.shape, self.dtype,
-                                   k, two_level=True, **plan_kw)
-            run = _cached_wave_iterate(plan, bc, interpret, cur.halo)
-            c_d, p_d = run(c.data, p.data, n_outer)
-            return (HaloGrid(data=p_d, halo=cur.halo, bc=bc),
-                    HaloGrid(data=c_d, halo=cur.halo, bc=bc))
-
-        n_outer, rem = divmod(int(steps), sweeps_per_call)
-        if n_outer:
-            prev, cur = advance(prev, cur, sweeps_per_call, n_outer)
-        if rem:
-            prev, cur = advance(prev, cur, rem, 1)
-        return prev, cur
-
-    def simulate_interior(self, u0, steps: int, v0=None,
-                          method: str = "xla", **kw) -> np.ndarray:
+    def simulate_interior(self, u0, steps: int, v0=None) -> np.ndarray:
         """Convenience: from initial conditions to the interior after
         ``steps`` steps (counting u_1 as step 1)."""
         prev, cur = self.initial_pair(u0, v0)
         if steps <= 1:
             return np.asarray((prev if steps == 0 else cur).interior())
-        _, cur = self.simulate(prev, cur, steps - 1, method=method, **kw)
+        _, cur = self.simulate(prev, cur, steps - 1)
         return np.asarray(cur.interior())
 
 

@@ -1,6 +1,6 @@
 """Golden model + differential checker.
 
-TPU-native analog of the reference's naive host verifier
+Analog of the reference's naive host verifier
 (``/root/reference/src/stencil/stencil.cpp:75-151``): an independent,
 deliberately-simple implementation run at float64, compared element-wise
 against every optimized kernel at an absolute tolerance (reference bar:

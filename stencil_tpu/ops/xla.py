@@ -1,11 +1,11 @@
 """Pure-XLA stencil sweep: the baseline "let the compiler do it" method.
 
 This is the JAX-idiomatic expression of the reference's computation with no
-hand-written kernel at all — shifted static slices summed on the VPU, the
+hand-written kernel at all — shifted static slices summed elementwise, the
 time loop as ``lax.fori_loop`` with functional ping-pong (the analog of the
 reference's buffer swap, ``stencil_dma.cpp:556-557``). XLA fuses the tap
-accumulation into a single pass; this is the method every Pallas kernel must
-beat, and the inner compute reused by the sharded path per-device.
+accumulation into a single pass; this is the method any hand-written kernel
+must beat, and the inner compute reused by the sharded and streamed paths.
 """
 
 from __future__ import annotations

@@ -11,12 +11,6 @@ jitted step function: every collective primitive inside (transitively,
 through pjit/shard_map/while/scan sub-jaxprs) is collected with its
 operand aval, so a test can assert the exact byte count and fail the
 moment anyone introduces an extra collective.
-
-The in-kernel RMA path moves its halos with ``make_async_remote_copy``
-inside the Pallas kernel — invisible to the jaxpr — so its accounting
-comes from the plan geometry instead (``parallel.rma.push_bytes_per_step``)
-and the jaxpr audit doubles as proof that NO XLA-level collective rides
-alongside the in-kernel DMAs.
 """
 
 from __future__ import annotations

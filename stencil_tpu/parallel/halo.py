@@ -1,14 +1,14 @@
 """Multi-chip halo exchange: ``shard_map`` + ``ppermute`` over the device
 mesh.
 
-TPU-native re-design of the reference's RMA kernel
+JAX re-design of the reference's RMA kernel
 (``/root/reference/src/stencil/slave/stencil_rma.cpp``), which pushes edge
 strips scratchpad-to-scratchpad over the 8x8 CPE mesh:
 
   =====================================  =====================================
-  reference (Sunway athread RMA)         here (JAX over the TPU mesh)
+  reference (Sunway athread RMA)         here (JAX over the device mesh)
   =====================================  =====================================
-  ``athread_rma_iput`` to mesh neighbor  ``jax.lax.ppermute`` over ICI
+  ``athread_rma_iput`` to mesh neighbor  ``jax.lax.ppermute`` (NCCL)
   target CPE id ``row*8+col``            named mesh axes + ``axis_index``
   edge CPEs synthesize Dirichlet halo    mesh-edge devices ``where`` in BC
     (``generate_boundary``, :150-166)      face values (ppermute yields zeros
@@ -30,9 +30,9 @@ received along dim d, so corners ride along — no explicit diagonal sends
 Periodic dims (``bc.periodic``, a beyond-reference capability) fall out
 of the same machinery: a periodic SHARDED dim replaces the open
 permutation chain with the circular one (``(i, (i±1) % n)``) — the ring
-topology ``ppermute`` natively expresses and ICI torus links physically
-provide — and drops the mesh-edge BC synthesis; a periodic unsharded dim
-uses the block's own opposite-edge strips as ghosts. Neumann dims
+topology ``ppermute`` natively expresses — and drops the mesh-edge BC
+synthesis; a periodic unsharded dim uses the block's own opposite-edge
+strips as ghosts. Neumann dims
 (``bc.neumann``, zero-flux mirror) keep the OPEN chain: mesh-edge
 devices synthesize their ghosts by mirroring their own edge strips — a
 purely local operation, exactly like Dirichlet synthesis but
@@ -123,8 +123,8 @@ def _dim_halos(
     mesh-edge devices mirror their OWN edge strips, a purely local
     synthesis like Dirichlet's; periodic dims use the CIRCULAR
     permutation — the wrap-around IS the ring topology ppermute natively
-    expresses (and ICI torus links physically provide), so the periodic
-    capability costs nothing extra on the wire.
+    expresses, so the periodic capability costs nothing extra on the
+    wire.
     """
     ndim = x.ndim
 
@@ -189,8 +189,8 @@ class ShardedStencil:
     """Distributed Jacobi iteration over a named device mesh.
 
     ``axis_names[d]`` names the mesh axis sharding grid dim d (None = not
-    sharded). The inner per-device sweep is the fused-slice XLA kernel; the
-    halo ring moves over ICI each sweep.
+    sharded). The inner per-device sweep is the fused-slice XLA sweep; the
+    halo ring moves between devices each sweep.
     """
 
     spec: StencilSpec
@@ -282,8 +282,7 @@ class ShardedStencil:
         """Jitted (global array, n) -> global array iteration function.
 
         Cached per (self, mesh, bc): rebuilding the jit closure per call
-        would re-trace every time (see ops.pallas._cached_runner); the
-        iteration count is traced.
+        would re-trace every time; the iteration count is traced.
         """
         return _sharded_iterate_fn(self, mesh, bc)
 

@@ -1,23 +1,20 @@
 """Method registry: name -> iterate implementation.
 
 Analog of the reference's method-name map (``stencil.cpp:61-66``:
-``{DMA, DMAStaticUnroll, DMASlavePack, RMA}``). The TPU-native method
-families and their reference counterparts:
+``{DMA, DMAStaticUnroll, DMASlavePack, RMA}``). The method families and
+their reference counterparts:
 
   ``xla``              pure-XLA fused-slice sweep — no reference analog
-                       (the baseline every kernel must beat)
-  ``pallas``           slab-streaming Pallas kernel, k=1 — contiguous VMEM
-                       block incl. halo ring ≙ DMASlavePack
-                       (``stencil_dma_slave_pack.cpp``); taps Python-unrolled
-                       at trace time ≙ DMAStaticUnroll fold-expressions
-                       (``stencil_dma_static_unroll.cpp``)
-  ``pallas_temporal``  same kernel, k>1 sweeps per HBM round trip — the TPU
-                       lever with no reference analog (SURVEY §7 step 6)
+                       (the baseline every hand-written kernel must beat)
   ``sharded``          shard_map + ppermute halo exchange over the device
                        mesh ≙ RMA core-to-core push (``stencil_rma.cpp``),
                        with interior-first overlap ≙ its pipeline
   ``sharded_noverlap`` same without the interior/boundary split (≙ DMA-family
                        per-iteration barrier semantics)
+  ``streamed``         out-of-core: a host-resident grid swept one d0 chunk
+                       at a time (the reference's documented, never
+                       implemented "multiple rounds")
+  ``varcoeff``         variable-coefficient diffusion marching
 
 Each entry is a factory ``(config, spec, grid) -> Runner`` where a Runner
 has ``iterate(grid, n) -> HaloGrid``.
@@ -40,11 +37,10 @@ class Runner:
     iterate: Callable[[HaloGrid, int], HaloGrid]
     description: str = ""
     # benchmark protocol hints: iteration counts that are multiples of
-    # `granularity` avoid compiling remainder kernels inside timed regions
+    # `granularity` avoid compiling remainder steps inside timed regions
     granularity: int = 1
-    # the applied kernel plan (tiles/tap_mode/... and where it came from:
-    # 'pinned' | 'flag' | 'autotune'), recorded into the CLI JSON so an
-    # autotuned run says WHAT it ran (round-3 verdict item 7)
+    # what the runner was built with (chunking, solver levels, ...),
+    # recorded into the CLI JSON
     plan_info: dict = dataclasses.field(default_factory=dict)
     # optional method-specific golden model for -c: (x0_f64, iters, bc)
     # -> interior_f64. Methods whose update the SPEC golden cannot
@@ -52,13 +48,6 @@ class Runner:
     # driver prefers it over the spec golden (NumPy — the driver caps
     # iterations like the spec fallback and warns).
     golden_fn: object = None
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
 
 
 def make_xla(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
@@ -73,221 +62,6 @@ def make_xla(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
         iterate=lambda g, n: xla.iterate_dynamic(g, spec, jnp.int32(n)),
         description="pure-XLA fused-slice sweep (baseline)",
     )
-
-
-def _dynamic_kernel_constraints(grid, spec, k, tap_mode, allowed,
-                                kernel: str):
-    """Validate + default the tap mode for dynamic-BC (periodic/Neumann)
-    grids on the Pallas kernels.
-
-    Dynamic LEAD dims (d0, and d1 on the tiled kernel) run at any
-    temporal depth with any tap mode: the kernels seed k*r
-    wrapped/mirrored ghost layers between calls and disable Dirichlet
-    pinning on those faces (their ``pins`` mechanism) — for Neumann dims
-    this needs the stencil mirror-symmetric in that dim at ``k>1`` (only
-    then does a sweep preserve the mirror extension). A dynamic LANE
-    (last) dim is the other constrained case — the in-VMEM virtual
-    sweeps cannot see the lane face mid-call, and synth/rotacc
-    synthesize the lane boundary — so it needs ``k=1`` plus a
-    ghost-reading tap mode (defaulted to 'slice' when unset). Returns
-    the tap mode to use."""
-    neu = grid.bc.neumann_mask(grid.ndim)
-    if k > 1:
-        for d in range(grid.ndim - 1):
-            if neu[d] and not spec.symmetric_in(d):
-                raise ValueError(
-                    f"a Neumann dim {d} on the {kernel} kernel at "
-                    f"temporal depth k={k} needs the stencil "
-                    f"mirror-symmetric in dim {d} (pass -k 1 for "
-                    "asymmetric taps)"
-                )
-    dyn = grid.bc.dynamic_mask(grid.ndim)
-    if not dyn[-1]:
-        return tap_mode
-    if k != 1:
-        raise ValueError(
-            f"a periodic/Neumann lane (last) dim on the {kernel} kernel "
-            "needs sweeps_per_call=1 (pass -k 1); dynamic leading dims "
-            "run at any temporal depth"
-        )
-    if tap_mode is None:
-        return "slice"
-    if tap_mode not in allowed:
-        raise ValueError(
-            f"a periodic/Neumann lane (last) dim on the {kernel} kernel "
-            f"needs a ghost-reading tap mode {sorted(allowed)}, not "
-            f"{tap_mode!r} (boundary-synthesizing modes assume "
-            "Dirichlet faces)"
-        )
-    return tap_mode
-
-
-def _make_pallas(config, spec, grid, k: int) -> Runner:
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    if spec.ndim == 3:
-        # 3D always uses the 2D-tiled kernel: full-minor-plane slabs can't
-        # hold a k*r-deep temporal window in VMEM for production grids,
-        # and tiling both minor-halo'd dims keeps windows small
-        return _make_pallas_tiled(config, spec, grid, k)
-    if config is not None and (config.autotune or config.slide
-                               or config.slots != 2
-                               or config.cores != 1
-                               or config.embed
-                               or config.chunks is not None) and _on_tpu():
-        # autotune/slide/slots/cores/embed are 3D tiled-kernel options
-        # (chunks belongs to the 3D-only 'streamed' method); the 2D slab
-        # kernel has one lever (-b slab rows) with a measured-flat
-        # response — pinned defaults apply
-        import sys
-
-        print("# autotune/slide/slots/cores/embed/chunks apply to 3D "
-              "methods; 2D slab path uses pinned defaults",
-              file=sys.stderr)
-    tap_mode = _dynamic_kernel_constraints(
-        grid, spec, k, getattr(config, "tap_mode", None), ("slice",),
-        "2D slab"
-    )
-    method = PallasStencil(
-        spec,
-        grid.interior_shape,
-        dtype=str(grid.dtype),
-        sweeps_per_call=k,
-        slab=config.block if config is not None else None,
-        interpret=not _on_tpu(),
-        tap_mode=tap_mode,
-    )
-    return Runner(
-        name="pallas" if k == 1 else f"pallas_temporal(k={k})",
-        iterate=method.iterate,
-        description=(
-            "slab-streaming Pallas kernel, double-buffered HBM<->VMEM DMA"
-            + ("" if k == 1 else f", {k} sweeps per round trip")
-        ),
-        granularity=k,
-    )
-
-
-def _make_pallas_tiled(config, spec, grid, k: int) -> Runner:
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil, choose_tiles
-
-    tiles = None
-    tap_mode = _dynamic_kernel_constraints(
-        grid, spec, k, getattr(config, "tap_mode", None),
-        ("slice", "roll"), "tiled 3D"
-    )
-    if grid.bc.any_dynamic:
-        if config is not None and (config.embed or config.slide):
-            raise ValueError(
-                "periodic/Neumann BCs: --embed pins Dirichlet thick "
-                "ghosts and --slide is unsupported; drop the flag"
-            )
-    if config is not None and config.block:
-        # -b/--block pins the d0 tile size; t1 is chosen within budget
-        tiles = choose_tiles(spec, grid.interior_shape, str(grid.dtype), k,
-                             s0_fixed=config.block)
-        if tiles is None:
-            raise ValueError(
-                f"no feasible d1 tile for block={config.block} at "
-                f"k={k} on {grid.interior_shape}"
-            )
-    slide = bool(getattr(config, "slide", False))
-    slots = getattr(config, "slots", 2) or 2
-    cores = getattr(config, "cores", 1) or 1
-    embed = bool(getattr(config, "embed", False))
-    # 'source' reports who picked the plan: a tap mode forced by the
-    # dynamic-lane constraint is NOT a user flag (the user passed no
-    # --tap-mode), so record it as its own source rather than "flag"
-    user_tap = getattr(config, "tap_mode", None) is not None
-    if tiles is not None or user_tap:
-        source = "flag"
-    elif tap_mode is not None:
-        source = "bc-constraint"
-    else:
-        source = "pinned"
-    tuned_glups = None
-    if config is not None and config.autotune and tiles is None \
-            and not user_tap:
-        if tap_mode is not None:
-            # the dynamic-lane constraint pinned the tap mode; the
-            # autotune cache/search covers the free tap modes only —
-            # skip loudly instead of silently dropping the flag
-            import sys
-
-            print("# --autotune skipped: the periodic/Neumann lane dim "
-                  f"pins tap_mode={tap_mode!r} (constraint-chosen plan)",
-                  file=sys.stderr)
-        elif _on_tpu():
-            from stencil_tpu import autotune
-
-            win = autotune.autotune(spec, grid.interior_shape,
-                                    str(grid.dtype), k,
-                                    force=config.autotune == "force")
-            if win is not None:
-                tiles = tuple(win["tiles"])
-                tap_mode = win["tap_mode"]
-                slide = bool(win.get("slide", False))
-                if slide and grid.bc.any_dynamic:
-                    # the cache key carries no BC: a winner tuned under
-                    # Dirichlet may use slide, which dynamic BCs cannot
-                    # run — keep its tiles/tap, drop the slide bit
-                    # (measured ~1% on cfg4; the eager gate above only
-                    # covers the user flag)
-                    import sys
-
-                    print("# autotuned slide dropped: unsupported with "
-                          "periodic/Neumann BCs", file=sys.stderr)
-                    slide = False
-                source = "autotune"
-                tuned_glups = win.get("glups")
-        # off-TPU: pinned defaults (the cache is keyed by device kind)
-    method = TiledPallasStencil(
-        spec,
-        grid.interior_shape,
-        dtype=str(grid.dtype),
-        sweeps_per_call=k,
-        tiles=tiles,
-        interpret=not _on_tpu(),
-        tap_mode=tap_mode,
-        slide=slide,
-        slots=slots,
-        cores=cores,
-        embed=embed,
-    )
-    plan = method.plan
-    plan_info = {
-        "kernel": "pallas_tiled", "source": source,
-        "tiles": [plan.s0, plan.t1], "tap_mode": plan.tap_mode,
-        "slide": plan.slide, "slots": plan.slots, "k": k,
-        "cores": plan.cores, "embed": plan.embed,
-        "vmem_limit": plan.vmem_limit,
-    }
-    if tuned_glups is not None:
-        plan_info["autotune_glups"] = tuned_glups
-    return Runner(
-        name=(f"pallas_tiled(k={k},{method.plan.s0}x{method.plan.t1})"),
-        iterate=method.iterate,
-        description=(
-            "2D-tiled Pallas kernel (manual double-buffered DMA windows)"
-            + ("" if k == 1 else f", {k} sweeps per HBM round trip")
-        ),
-        granularity=k,
-        plan_info=plan_info,
-    )
-
-
-def make_pallas_tiled(config, spec, grid) -> Runner:
-    k = config.temporal if config is not None and config.temporal > 1 else 1
-    return _make_pallas_tiled(config, spec, grid, k)
-
-
-def make_pallas(config, spec, grid) -> Runner:
-    return _make_pallas(config, spec, grid, 1)
-
-
-def make_pallas_temporal(config, spec, grid) -> Runner:
-    k = config.temporal if config is not None and config.temporal > 1 else 8
-    return _make_pallas(config, spec, grid, k)
 
 
 def _make_sharded(config, spec, grid, overlap: bool) -> Runner:
@@ -331,173 +105,34 @@ def make_sharded_noverlap(config, spec, grid) -> Runner:
     return _make_sharded(config, spec, grid, False)
 
 
-def make_sharded_pallas(config, spec, grid) -> Runner:
-    """Production multi-chip path: per-device Pallas kernel + ppermute
-    halo exchange (BASELINE config 5). ``--mesh a`` shards the leading
-    dim; ``--mesh a b`` shards both leading dims of a 3D grid (the
-    reference's 2D CPE mesh / v5e-16 4x4 ICI torus topology)."""
-    from stencil_tpu.parallel.halo import make_mesh
-    from stencil_tpu.parallel.pallas_sharded import ShardedPallasStencil
-
-    if config is not None and config.mesh:
-        mesh_sizes = tuple(config.mesh)
-    else:
-        mesh_sizes = (len(jax.devices()),)
-    if len(mesh_sizes) > 2:
-        raise ValueError("mesh must be 1D or 2D over the leading grid dims")
-    axes = ("x", "y")[: len(mesh_sizes)]
-    mesh = make_mesh(mesh_sizes, axes)
-    k = config.temporal if config is not None and config.temporal > 1 else 1
-    if grid.bc.any_dynamic:
-        # same constraints ShardedPallasStencil.iterate enforces, raised
-        # eagerly so the CLI reports 'unavailable' instead of a mid-run
-        # traceback (dynamic LEADING dims are fully supported: sharded
-        # ones ride the exchange, unsharded ones refresh locally)
-        dyn = grid.bc.dynamic_mask(grid.ndim)
-        neu = grid.bc.neumann_mask(grid.ndim)
-        if dyn[-1]:
-            raise ValueError(
-                "a periodic/Neumann lane (last) dim is unsupported by "
-                "'sharded_pallas'; use the 'sharded' or 'xla' method")
-        if k > 1:
-            for d in range(grid.ndim - 1):
-                if neu[d] and not spec.symmetric_in(d):
-                    raise ValueError(
-                        f"a Neumann dim {d} at temporal depth k>1 needs "
-                        f"the stencil mirror-symmetric in dim {d} "
-                        "(use -k 1)")
-    method = ShardedPallasStencil(
-        spec,
-        grid.interior_shape,
-        axis_names=axes,
-        dtype=str(grid.dtype),
-        sweeps_per_call=k,
-        slab=config.block if config is not None else None,
-        interpret=not _on_tpu(),
-        tap_mode=getattr(config, "tap_mode", None),
-        # --no-overlap disables the interior-first phase split, exactly
-        # as it does for the `sharded` method
-        overlap=not (config is not None and config.no_overlap),
-    )
-    method.local_plan(mesh_sizes)  # validate divisibility/VMEM eagerly
-    return Runner(
-        name=f"sharded_pallas(mesh={'x'.join(map(str, mesh_sizes))},k={k})",
-        iterate=lambda g, it: method.iterate(g, it, mesh),
-        description=(
-            "per-device Pallas kernel + ppermute halo exchange over "
-            "the device mesh (leading-dim(s) sharding)"
-        ),
-        granularity=k,
-    )
-
-
-def make_rma(config, spec, grid) -> Runner:
-    """In-kernel RMA: VMEM-resident blocks, remote-DMA halo pushes over
-    ICI, double-buffered semaphores, no global barrier — the literal
-    analog of the reference's RMA kernel (stencil_rma.cpp). Supports a
-    1D or 2D device mesh over the leading grid dims (the reference runs
-    an 8x8 2D CPE mesh) and temporal blocking via -k/--temporal.
-    Per-device block(s) must fit VMEM."""
-    from stencil_tpu.parallel.halo import make_mesh
-    from stencil_tpu.parallel.rma import RmaStencil
-
-    if config is not None and config.mesh:
-        mesh_sizes = tuple(config.mesh)
-    else:
-        mesh_sizes = (len(jax.devices()),)
-    if len(mesh_sizes) > 2:
-        # same user-facing message as make_rma_plan; validating here avoids
-        # an opaque shape mismatch inside Mesh construction for --mesh a b c
-        raise ValueError("mesh must be 1D or 2D over the leading grid dims")
-    axes = ("x", "y")[: len(mesh_sizes)]
-    mesh = make_mesh(mesh_sizes, axes)
-    k = config.temporal if config is not None and config.temporal > 1 else 1
-    if grid.bc.any_dynamic:
-        # same constraints RmaStencil.iterate enforces, raised eagerly so
-        # the CLI reports 'unavailable' instead of a mid-run traceback:
-        # dynamic LEADING dims are supported (sharded periodic = circular
-        # ring push topology, sharded Neumann = in-kernel mirror synthesis
-        # on mesh-edge devices, unsharded = local refresh at iteration
-        # start; mirror-symmetric spec required at k>1); the lane dim
-        # gates
-        per = grid.bc.periodic_mask(grid.ndim)
-        neu = grid.bc.neumann_mask(grid.ndim)
-        if per[grid.ndim - 1] or neu[grid.ndim - 1]:
-            raise ValueError(
-                "a periodic/Neumann LANE (last) dim is unsupported by "
-                "'rma' (use 'xla', or 'pallas_tiled' at -k 1)")
-        if k > 1:
-            asym = [d for d in range(grid.ndim - 1)
-                    if neu[d] and not spec.symmetric_in(d)]
-            if asym:
-                raise ValueError(
-                    f"Neumann dim(s) {asym} at -k {k} need the stencil "
-                    "mirror-symmetric in those dims (use -k 1 for "
-                    "asymmetric taps)")
-        kr = k * spec.radius
-        shallow = [d for d in range(len(mesh_sizes), grid.ndim - 1)
-                   if (per[d] or neu[d])
-                   and grid.interior_shape[d] < kr]
-        if shallow:
-            raise ValueError(
-                f"dynamic unsharded dim(s) {shallow} are shallower than "
-                f"the temporal ghost depth k*r = {kr}")
-    method = RmaStencil(
-        spec,
-        grid.interior_shape,
-        dtype=str(grid.dtype),
-        sweeps_per_call=k,
-        interpret=not _on_tpu(),
-    )
-    method.local_plan(mesh_sizes)  # validate divisibility/VMEM eagerly
-    return Runner(
-        name=f"rma(mesh={'x'.join(map(str, mesh_sizes))},k={k})",
-        iterate=lambda g, it: method.iterate(g, it, mesh),
-        description=(
-            "VMEM-resident blocks with remote-DMA halo push over ICI "
-            "(no per-iteration barrier)"
-        ),
-        granularity=k,
-    )
-
-
 def make_streamed(config, spec, grid) -> Runner:
     """Out-of-core host-streamed iteration: grids larger than device
-    HBM, swept one d0 chunk at a time through the tiled kernel with
-    k*r-deep host-seeded ghosts (the reference documents this as
-    "multiple rounds" and never implements it,
-    ``program_options.hpp:11-14``). ``--chunks`` forces the chunk
-    count; the default auto-sizes from the attached device's HBM."""
+    memory, swept one d0 chunk at a time by the XLA sweep with k*r-deep
+    host-seeded ghosts (the reference documents this as "multiple
+    rounds" and never implements it, ``program_options.hpp:11-14``).
+    ``--chunks`` forces the chunk count; the default sizes it from the
+    device's reported memory limit."""
     from stencil_tpu.streaming import StreamedStencil
 
     k = config.temporal if config is not None and config.temporal > 1 else 1
-    tap_mode = _dynamic_kernel_constraints(
-        grid, spec, k, getattr(config, "tap_mode", None),
-        ("slice", "roll"), "streamed (tiled 3D)"
-    )
     method = StreamedStencil(
         spec,
         grid.interior_shape,
         dtype=str(grid.dtype),
         sweeps_per_call=k,
         chunks=getattr(config, "chunks", None),
-        tap_mode=tap_mode,
-        interpret=not _on_tpu(),
     )
-    plan = method.plan
     return Runner(
         name=f"streamed(C={method.num_chunks},k={k})",
         iterate=method.iterate,
         description=(
-            "out-of-core host-resident grid streamed through the tiled "
-            "kernel one d0 chunk at a time (k*r-deep host-seeded ghosts)"
+            "out-of-core host-resident grid swept one d0 chunk at a time "
+            "by the XLA sweep (k*r-deep host-seeded ghosts)"
         ),
         granularity=k,
         plan_info={
             "kernel": "streamed", "chunks": method.num_chunks,
-            "chunk_planes": [b - a for a, b in method.bounds],
-            "tiles": [plan.s0, plan.t1], "tap_mode": plan.tap_mode,
-            "k": k, "vmem_limit": plan.vmem_limit,
+            "chunk_planes": [b - a for a, b in method.bounds], "k": k,
         },
     )
 
@@ -505,9 +140,8 @@ def make_streamed(config, spec, grid) -> Runner:
 def make_varcoeff(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     """Variable-coefficient (heterogeneous) FTCS diffusion marching —
     the model family behind ``--solve hetero``, exposed as an ITERATE
-    method so the coeff kernel (streamed a(x), in-register harmonic
-    face weights; 62.6 GLUPS at 256^3 k=8 on v5e vs 8.2 XLA) is
-    CLI-benchmarkable like every other kernel. The coefficient field
+    method so the per-point-weight XLA sweep is CLI-benchmarkable like
+    every other method. The coefficient field
     is the deterministic two-material a(x) with ratio ``--contrast``
     (same field ``--solve hetero`` uses); the requested spec must be
     the radius-1 star the scheme discretizes (jacobi5/7 by rank).
@@ -530,13 +164,7 @@ def make_varcoeff(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
                      seed=0)
     het = HeterogeneousDiffusion(shape=tuple(config.size), a=a,
                                  bc=grid.bc, dtype=config.dtype)
-    k = max(1, config.temporal)
-    method = "auto"
-    tiles = None
-    if config.block is not None:
-        tiles = (config.block, config.block)
-    runner = het.runner(method=method, sweeps_per_call=k, tiles=tiles,
-                        interpret=not _on_tpu())
+    runner = het.runner()
     offsets, fields = het.tap_fields()
 
     def golden_fn(x0, iters, bc):
@@ -550,41 +178,25 @@ def make_varcoeff(config, spec: StencilSpec, grid: HaloGrid) -> Runner:
 
 REGISTRY: Dict[str, Callable] = {
     "xla": make_xla,
-    "pallas": make_pallas,
-    "pallas_temporal": make_pallas_temporal,
-    "pallas_tiled": make_pallas_tiled,
     "sharded": make_sharded,
     "sharded_noverlap": make_sharded_noverlap,
-    "sharded_pallas": make_sharded_pallas,
-    "rma": make_rma,
     "streamed": make_streamed,
     "varcoeff": make_varcoeff,
 }
 
 # Dynamic BCs — periodic (wrap-around) and Neumann (zero-flux mirror)
 # dims, capability extensions beyond the Dirichlet-only reference
-# (stencil.cpp:190-207) — are accepted by EVERY method, each with its
-# own per-factory constraints raised eagerly (so the CLI reports
-# '[name] unavailable: ...' instead of a mid-run traceback): the Pallas
-# kernels run dynamic LEADING dims at any temporal depth (deep
-# wrap/mirror refresh + pins, like the sharded paths' mesh-internal
-# faces; Neumann needs the spec mirror-symmetric in the dim at k>1)
-# while a dynamic LANE dim needs k=1 + a ghost-reading tap mode
-# (_dynamic_kernel_constraints); sharded/sharded_pallas take periodic
-# as the CIRCULAR permutation and Neumann as local mirror synthesis on
-# mesh-edge devices (sharded_pallas refuses a dynamic lane dim); rma
-# takes dynamic BCs on any LEADING dim — sharded periodic as the
-# circular remote-DMA ring, sharded Neumann as in-kernel mirror
-# synthesis on mesh-edge devices, unsharded dims as a local
-# wrap/mirror refresh at iteration start (mirror-symmetric spec
-# required at k>1; the lane dim gates).
+# (stencil.cpp:190-207) — are accepted by every method: the XLA sweeps
+# refresh the wrap/mirror ghosts after each sweep, sharded takes periodic
+# as the circular permutation and Neumann as local mirror synthesis on
+# mesh-edge devices, streamed seeds k*r-deep wrap/mirror rows per chunk.
 
 
 def get_runner(name: str, config, spec: StencilSpec, grid: HaloGrid) -> Runner:
     try:
         factory = REGISTRY[name]
     except KeyError:
-        raise KeyError(
+        raise ValueError(
             f"unknown method {name!r}; available: {sorted(REGISTRY)}"
         ) from None
     return factory(config, spec, grid)

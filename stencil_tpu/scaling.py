@@ -1,10 +1,11 @@
 """Weak-scaling harness: per-chip throughput vs mesh size.
 
-BASELINE.json's multi-chip target is "sharded 3D 7-point Jacobi, 1024^3 on
-v5e-16, ppermute halo exchange overlapped with interior compute, >= 90%
-weak-scaling efficiency". This harness measures exactly that protocol:
-hold the per-device block constant, grow the 1D mesh, report per-chip
-GLUPS and efficiency vs the single-device run.
+BASELINE.json's multi-chip target is "sharded 3D 7-point Jacobi,
+ppermute halo exchange overlapped with interior compute, >= 90%
+weak-scaling efficiency". This harness measures that protocol on the
+``sharded`` method (``parallel/halo.py``): hold the per-device block
+constant, grow the 1D mesh, report per-device GLUPS and efficiency vs the
+single-device run.
 
 The reference has no multi-node story at all (its LSF scripts always run
 one node, ``run.sh:2``; the "multiple rounds" chunking its options
@@ -12,12 +13,12 @@ describe was never implemented, ``program_options.hpp:11-14``).
 
 On a CPU host this runs on the virtual device mesh (functional
 validation + plumbing check; CPU "efficiency" numbers are not meaningful).
-On a real multi-chip slice the same entry point produces the
-BASELINE-config-5 measurement.
+On a multi-GPU host the same entry point, one process driving every
+card, produces the measurement.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-  python -m stencil_tpu.scaling --platform cpu --local 64 128 128 -k 4
+  python -m stencil_tpu.scaling --platform cpu --local 64 128 128
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ class ScalePoint:
 def run_weak_scaling(
     local_shape: Sequence[int] = (64, 128, 128),
     spec_name: str = "jacobi7",
-    temporal: int = 4,
     mesh_sizes: Optional[Sequence[int]] = None,
     dtype: str = "float32",
     periodic: Sequence[int] = (),
@@ -49,19 +49,20 @@ def run_weak_scaling(
     progress=print,
 ) -> List[ScalePoint]:
     import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
 
-    from stencil_tpu.core.grid import DirichletBC, HaloGrid
+    from stencil_tpu.core.grid import DirichletBC
     from stencil_tpu.core.spec import get_spec
-    from stencil_tpu.parallel.halo import make_mesh
-    from stencil_tpu.parallel.pallas_sharded import ShardedPallasStencil
-    from stencil_tpu.utils.timing import measure_marginal, warmup_fetch_async
+    from stencil_tpu.parallel.halo import ShardedStencil, make_mesh
+    from stencil_tpu.utils.timing import measure_marginal
 
-    warm = warmup_fetch_async()
     spec = get_spec(spec_name)
+    ndim = len(local_shape)
     # dynamic BCs ride the same sharded machinery (a periodic sharded d0
-    # is the torus-wrapped domain classic weak scaling assumes: the
-    # ppermute chain closes into the circular permutation ICI provides)
-    bc = DirichletBC.reference_default(len(local_shape))
+    # is the wrapped domain classic weak scaling assumes: the ppermute
+    # chain closes into the circular permutation)
+    bc = DirichletBC.reference_default(ndim)
     if periodic:
         bc = bc.with_periodic(tuple(periodic))
     if neumann:
@@ -69,7 +70,7 @@ def run_weak_scaling(
     n_avail = len(jax.devices())
     if mesh_sizes is None:
         mesh_sizes = [n for n in (1, 2, 4, 8, 16, 32, 64) if n <= n_avail]
-    on_tpu = jax.devices()[0].platform == "tpu"
+    method = ShardedStencil(spec, ("x",) + (None,) * (ndim - 1))
 
     points: List[ScalePoint] = []
     base_per_chip = None
@@ -77,56 +78,35 @@ def run_weak_scaling(
     for n in mesh_sizes:
         gshape = (local_shape[0] * n,) + tuple(local_shape[1:])
         mesh = make_mesh((n,), ("x",))
-        grid = HaloGrid.create(gshape, halo=spec.radius, dtype=dtype,
-                               bc=bc)
-        method = ShardedPallasStencil(
-            spec, gshape, axis_name="x", dtype=dtype,
-            sweeps_per_call=temporal, interpret=not on_tpu,
-        )
+        # the raw sharded step on the interior array: HaloGrid.iterate
+        # re-pads the global array per call, which is not part of the
+        # steady-state scaling cost
+        x = jax.device_put(jnp.zeros(gshape, dtype),
+                           NamedSharding(mesh, method.partition_spec()))
+        fn = method.iterate_fn(mesh, bc)
 
-        # time the raw sharded step on the stacked-padded state: iterate()
-        # is device-resident too, but re-pads/unpads the global array per
-        # call, which is not part of the steady-state scaling cost
-        import jax.numpy as jnp
-
-        stacked = method.scatter(grid, mesh)
-        scratch = jnp.array(stacked, copy=True)
-        fn = method.iterate_fn(mesh, grid.bc)
-
-        def run(it, fn=fn, stacked=stacked, scratch=scratch,
-                temporal=temporal):
-            out, _ = fn(stacked, scratch, jnp.int32(it // temporal))
-            return out
+        def run(it, fn=fn, x=x):
+            return fn(x, jnp.int32(it))
 
         if not audited and n > 1:
             # static comm audit: per-device exchanged bytes and the
             # no-hidden-collective guarantee the >=90% target rests on
             # (mesh-size independent; tests/test_comm_volume.py pins it)
-            try:
-                from stencil_tpu.parallel.comm_audit import audit_step
+            from stencil_tpu.parallel.comm_audit import audit_step
 
-                a = audit_step(
-                    fn,
-                    jax.ShapeDtypeStruct(stacked.shape, stacked.dtype),
-                    jax.ShapeDtypeStruct(stacked.shape, stacked.dtype),
-                    jax.ShapeDtypeStruct((), np.int32),
-                )
-                extra = (f", PLUS hidden collectives: "
-                         f"{a['other_collectives']}"
-                         if a["other_collectives"] else "")
-                progress(
-                    f"comm audit: {a['ppermute_count']} ppermutes/step, "
-                    f"{a['ppermute_bytes'] / 1e6:.2f} MB/device/step "
-                    f"(mesh-size independent){extra}"
-                )
-            except Exception as e:
-                progress(f"comm audit unavailable: {e}")
+            a = audit_step(fn, jax.ShapeDtypeStruct(gshape, x.dtype),
+                           jax.ShapeDtypeStruct((), np.int32))
+            extra = (f", PLUS hidden collectives: "
+                     f"{a['other_collectives']}"
+                     if a["other_collectives"] else "")
+            progress(
+                f"comm audit: {a['ppermute_count']} ppermutes/sweep, "
+                f"{a['ppermute_bytes'] / 1e6:.2f} MB/device/sweep "
+                f"(mesh-size independent){extra}"
+            )
             audited = True
 
-        run(temporal)  # compile
-        warm.join(timeout=900)
-        m = measure_marginal(run, warmup_iters=temporal,
-                             granularity=temporal)
+        m = measure_marginal(run)
         glups = float(np.prod(gshape)) / m.seconds_per_iteration / 1e9
         per_chip = glups / n
         if base_per_chip is None:
@@ -139,7 +119,7 @@ def run_weak_scaling(
         points.append(pt)
         progress(
             f"n={n:3d}  global={'x'.join(map(str, gshape))}  "
-            f"{glups:8.2f} GLUPS  {per_chip:7.2f}/chip  "
+            f"{glups:8.2f} GLUPS  {per_chip:7.2f}/device  "
             f"eff={100 * pt.efficiency:.0f}%"
         )
     return points
@@ -153,12 +133,11 @@ def main(argv=None) -> int:
                    help="per-device interior block (weak scaling holds "
                         "this constant)")
     p.add_argument("--spec", type=str, default="jacobi7")
-    p.add_argument("-k", "--temporal", type=int, default=4)
     p.add_argument("--mesh-sizes", type=int, nargs="*", default=None)
     p.add_argument("--dtype", type=str, default="float32")
     p.add_argument("--periodic", type=int, nargs="*", default=[],
                    help="dims with wrap-around BCs (a periodic sharded "
-                        "d0 = the torus-wrapped weak-scaling domain)")
+                        "d0 = the wrapped weak-scaling domain)")
     p.add_argument("--neumann", type=int, nargs="*", default=[],
                    help="dims with zero-flux mirror BCs")
     p.add_argument("--json-out", type=str, default=None)
@@ -168,7 +147,7 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", ns.platform)
-    pts = run_weak_scaling(tuple(ns.local), ns.spec, ns.temporal,
+    pts = run_weak_scaling(tuple(ns.local), ns.spec,
                            ns.mesh_sizes, ns.dtype,
                            periodic=ns.periodic, neumann=ns.neumann)
     if ns.json_out:

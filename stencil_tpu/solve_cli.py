@@ -36,15 +36,6 @@ SOLVERS = ("auto", "relax", "mg", "fmg", "cg", "pcg", "bicgstab",
            "gmres")
 
 
-def _on_tpu() -> bool:
-    try:
-        import jax
-
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
 def _solve_bc(config: RunConfig):
     """Zero Dirichlet walls (the steady-problem convention), with
     --periodic/--neumann dims applied; problems that cannot pose a
@@ -79,13 +70,8 @@ def build_problem(config: RunConfig):
                 f"--contrast must be >= 1 (got {config.contrast})")
         a = two_material(shape, lo=1.0 / config.contrast, hi=1.0,
                          seed=0)
-        kernel = config.op_kernel
-        if kernel == "auto" and config.mesh:
-            # distributed solves run under GSPMD: the single-device
-            # pallas coeff matvec cannot (krylov._check_mesh_operator)
-            kernel = "xla"
         return HeterogeneousPoissonProblem(
-            shape=shape, a=a, bc=bc, dtype=config.dtype, kernel=kernel)
+            shape=shape, a=a, bc=bc, dtype=config.dtype)
     if family == "advdiff":
         from stencil_tpu.models.advection_diffusion import (
             AdvectionDiffusionProblem,
@@ -127,27 +113,9 @@ def build_rhs(config: RunConfig, problem):
 def _resolve_solver(config: RunConfig) -> str:
     if config.solver != "auto":
         return config.solver
-    # measured guidance (results/ROUND4.md): MG-preconditioned CG is
-    # the SPD winner; MG-preconditioned BiCGStab the general one
+    # MG-preconditioned CG is the SPD choice; MG-preconditioned
+    # BiCGStab the general one
     return "pcg" if config.solve == "poisson" else "bicgstab"
-
-
-def _resolve_fine_method(config: RunConfig, mesh) -> str:
-    fm = config.fine_method
-    if fm != "auto":
-        return fm
-    # measured v5e 255^3 (results/ROUND5.md sec 2): with the fused
-    # smooth+residual kernel the chebyshev pallas fine level wins at
-    # every nu (nu2 9.2 vs 11.9 ms/cycle; nu4 11.5 vs 21.0); the
-    # UNfused wjacobi path still needs nu >= 4 to amortize its
-    # per-call cost (nu2 13.1 vs 11.6)
-    nu_min = 1 if config.smoother == "chebyshev" else 4
-    if (mesh is None and len(config.size) == 3
-            and config.dtype == "float32" and min(config.size) >= 32
-            and min(int(v) for v in config.nu_smooth) >= nu_min
-            and _on_tpu()):
-        return "pallas_tiled"
-    return "xla"
 
 
 def _make_mesh(config: RunConfig):
@@ -185,13 +153,11 @@ def build_solver(config: RunConfig, problem):
     def make_mg():
         from stencil_tpu.multigrid import Multigrid
 
-        fm = _resolve_fine_method(config, mesh)
         plan.update(smoother=config.smoother, gamma=config.gamma,
-                    nu_smooth=[nu1, nu2], fine_method=fm)
+                    nu_smooth=[nu1, nu2])
         return Multigrid(
             problem, nu1=nu1, nu2=nu2, smoother=config.smoother,
-            gamma=config.gamma, fine_method=fm,
-            interpret=not _on_tpu() and fm == "pallas_tiled")
+            gamma=config.gamma)
 
     def make_opmg():
         from stencil_tpu.multigrid import OperatorMultigrid
@@ -331,12 +297,16 @@ def _solve_once(config: RunConfig, solver, kind, problem, f, mesh,
     raise AssertionError(kind)
 
 
-def run_solve(config: RunConfig, out) -> List[dict]:
+def run_solve(config: RunConfig, out, device: dict) -> List[dict]:
     """Solve-mode driver: build, solve (with optional checkpointing +
-    timed repeats), certify, report. Returns JSON-able records."""
+    timed repeats), certify, report. Returns JSON-able records; each
+    names the ``device`` (``platform.device_info()``) it ran on."""
     import json as _json
 
-    from stencil_tpu.utils.timing import force, measure_wall
+    import jax
+
+    from stencil_tpu.platform import describe
+    from stencil_tpu.utils.timing import measure_wall
 
     try:
         problem = build_problem(config)
@@ -349,7 +319,8 @@ def run_solve(config: RunConfig, out) -> List[dict]:
         # 'unavailable' contract
         name = _resolve_solver(config)
         print(f"[{name}] unavailable: {e}", file=out)
-        rec = {"solve": config.solve, "solver": name, "error": str(e)}
+        rec = {"solve": config.solve, "solver": name, "error": str(e),
+               "device": device}
         if config.json_out:
             with open(config.json_out, "w") as fh:
                 fh.write(_json.dumps(rec) + "\n")
@@ -357,7 +328,9 @@ def run_solve(config: RunConfig, out) -> List[dict]:
     name = plan["solver"]
     rec: dict = {"solve": config.solve, "solver": name,
                  "size": list(config.size), "dtype": config.dtype,
-                 "tolerance": config.tolerance, "plan": plan}
+                 "tolerance": config.tolerance, "plan": plan,
+                 "device": device}
+    print(f"# device: {describe(device)}", file=out)
 
     initial = _warm_start(config, problem, f)
     tol_eff = None
@@ -395,7 +368,7 @@ def run_solve(config: RunConfig, out) -> List[dict]:
         if bnorm2:
             rrel = r / bnorm2  # report relative to ||b||, not r0
             conv = bool(rrel <= config.tolerance * (1 + 1e-9))
-    force(grid.data)
+    jax.block_until_ready(grid.data)
     rec.update(iterations=iters, residual=r, residual_rel=rrel,
                converged=bool(conv))
     tag = "converged" if conv else "NOT converged"

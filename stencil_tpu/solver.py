@@ -7,9 +7,9 @@ is a capability gap this build fills. Residual = max |x_{n+1} - x_n| over
 the interior (the natural stopping metric for the reference's fixed-point
 iteration toward the harmonic solution).
 
-Design for TPU: checking every sweep would serialize a device->host fetch
-per sweep, so the solver iterates in chunks of ``check_every`` sweeps
-(whatever Runner implements them — XLA, Pallas, sharded) and evaluates the
+Design: checking every sweep would serialize a device->host fetch per
+sweep, so the solver iterates in chunks of ``check_every`` sweeps
+(whatever Runner implements them — XLA, sharded, streamed) and evaluates the
 residual on device between chunks; only the scalar verdict crosses to the
 host. Chunked checking can overshoot by at most ``check_every - 1`` sweeps,
 which for a contraction mapping only tightens the result.

@@ -23,11 +23,11 @@ from stencil_tpu.cli import run_all
 
 
 # the reference sweep space (run_expr.py:6-15): block in {8..120},
-# iterations in {1..1e5}, grid side = 8 * block. TPU defaults are scaled to
-# chip-sized problems.
+# iterations in {1..1e5}, grid side = 8 * block. The defaults are scaled
+# to device-sized problems.
 DEFAULT_SIZES: Sequence[int] = (512, 1024, 2048, 4096)
 DEFAULT_ITERATIONS: Sequence[int] = (100, 1000)
-DEFAULT_METHODS: Sequence[str] = ("xla", "pallas", "pallas_temporal")
+DEFAULT_METHODS: Sequence[str] = ("xla",)
 
 
 def sweep_configs(
@@ -36,7 +36,7 @@ def sweep_configs(
     methods: Sequence[str] = DEFAULT_METHODS,
     ndim: int = 2,
     spec: Optional[str] = None,
-    temporal: int = 8,
+    temporal: int = 1,
     check: bool = False,
     dtypes: Sequence[str] = ("float32",),
     mesh: Sequence[int] = (),
@@ -148,7 +148,8 @@ def main(argv=None) -> int:
                    default=list(DEFAULT_METHODS))
     p.add_argument("--ndim", type=int, default=2, choices=[2, 3])
     p.add_argument("--spec", type=str, default=None)
-    p.add_argument("--temporal", type=int, default=8)
+    p.add_argument("--temporal", type=int, default=1,
+                   help="'streamed' method: sweeps per chunk round trip")
     p.add_argument("--check", action="store_true")
     p.add_argument("--dtypes", type=str, nargs="+", default=["float32"])
     p.add_argument("--periodic", type=str, nargs="*", default=[],
@@ -177,7 +178,7 @@ def main(argv=None) -> int:
     p.add_argument("--json", type=str, default="sweep.jsonl")
     p.add_argument("--platform", type=str, default="",
                    help="force a JAX platform (e.g. cpu for the virtual "
-                        "mesh; plugins ignore JAX_PLATFORMS)")
+                        "mesh)")
     ns = p.parse_args(argv)
     if ns.platform:
         import jax

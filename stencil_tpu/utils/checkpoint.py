@@ -3,8 +3,8 @@
 The reference has NO checkpoint capability (SURVEY §5: one-shot LSF batch
 jobs; its only artifact path is an unused BMP dump, ``stencil.cpp:153-188``).
 Long stencil relaxations (the sweep harness goes to 1e5 iterations,
-``run_expr.py:6-15``) lose everything on preemption — on shared TPU pods
-that is the common case, so the TPU build treats resumable state as a
+``run_expr.py:6-15``) lose everything on preemption — on shared clusters
+that is the common case, so this build treats resumable state as a
 first-class subsystem.
 
 State = (grid interior, spec name, iteration counter, BC values, dtype).
@@ -15,7 +15,7 @@ directory-fsync protocol. An optional rolling-window retention
 keeps the newest N checkpoints.
 
 ``CheckpointedRun`` wraps any registry Runner with periodic saves and
-resume-on-restart, turning every method (XLA, Pallas, sharded) into a
+resume-on-restart, turning every method (XLA, sharded, streamed) into a
 preemption-safe run without the method knowing.
 """
 

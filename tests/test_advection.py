@@ -92,42 +92,39 @@ def test_lax_wendroff_beats_upwind():
 
 
 def test_tiled_kernel_runs_asymmetric_taps_at_depth():
-    """pallas_tiled at k=4 over periodic LEADING dims with an asymmetric
-    spec (wrap needs no symmetry, unlike Neumann) matches the float64
-    golden model."""
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
+    """The streamed method at k=4 over periodic LEADING dims with an
+    asymmetric spec (wrap needs no symmetry, unlike Neumann) matches the
+    float64 golden model."""
+    from stencil_tpu.streaming import StreamedStencil
 
     shape = (12, 16, 18)
     bc = DirichletBC.zero(3).with_periodic((0, 1))
     adv = Advection(shape=shape, velocity=(0.6, -0.3, 0.4),
                     cfl_safety=0.8, bc=bc)
     u0 = _gaussian(shape)
-    m = TiledPallasStencil(adv.spec, shape, sweeps_per_call=4,
-                           interpret=True)
-    g = m.iterate(adv.initial_grid(u0), 8)
+    m = StreamedStencil(adv.spec, shape, sweeps_per_call=4, chunks=2)
+    got = m.iterate_host(u0.astype(np.float32), 8, bc=bc)
     want = golden.golden_iterate(u0, adv.spec, 8, bc=bc)
-    np.testing.assert_allclose(np.asarray(g.interior()), want,
-                               atol=5e-6, rtol=0)
+    np.testing.assert_allclose(got, want, atol=5e-6, rtol=0)
 
 
 def test_neumann_depth_gate_fires_on_asymmetric_spec():
-    """The per-dim mirror-symmetry gate exists exactly for this family:
-    Neumann dims at k>1 refuse asymmetric taps, k=1 runs and matches."""
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
+    """The d0 mirror-symmetry gate exists exactly for this family: a
+    streamed Neumann d0 at k>1 refuses asymmetric taps, k=1 runs and
+    matches."""
+    from stencil_tpu.streaming import StreamedStencil
 
     shape = (12, 16, 18)
     bc = DirichletBC.zero(3).with_neumann((0,))
     adv = Advection(shape=shape, velocity=(0.5, 0.0, 0.0), dt=0.5, bc=bc)
-    m2 = TiledPallasStencil(adv.spec, shape, sweeps_per_call=2,
-                            interpret=True)
+    u0 = _gaussian(shape).astype(np.float32)
+    m2 = StreamedStencil(adv.spec, shape, sweeps_per_call=2, chunks=2)
     with pytest.raises(ValueError, match="mirror-symmetric"):
-        m2.iterate(adv.initial_grid(_gaussian(shape)), 2)
-    m1 = TiledPallasStencil(adv.spec, shape, sweeps_per_call=1,
-                            interpret=True)
-    g = m1.iterate(adv.initial_grid(_gaussian(shape)), 3)
+        m2.iterate_host(u0, 2, bc=bc)
+    m1 = StreamedStencil(adv.spec, shape, sweeps_per_call=1, chunks=2)
+    got = m1.iterate_host(u0, 3, bc=bc)
     want = golden.golden_iterate(_gaussian(shape), adv.spec, 3, bc=bc)
-    np.testing.assert_allclose(np.asarray(g.interior()), want,
-                               atol=5e-6, rtol=0)
+    np.testing.assert_allclose(got, want, atol=5e-6, rtol=0)
 
 
 def test_exact_translate_rejects_fractional_displacement():

@@ -1,5 +1,5 @@
-"""Checkpoint/resume subsystem tests (SURVEY §5: reference has none; the
-TPU build adds preemption-safe runs as a first-class aux subsystem)."""
+"""Checkpoint/resume subsystem tests (SURVEY §5: reference has none; this
+framework adds preemption-safe runs as a first-class aux subsystem)."""
 
 import numpy as np
 import pytest
@@ -165,15 +165,16 @@ def test_resume_stays_host_resident_for_streamed(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("method,cfg_kwargs", [
-    ("pallas", {"temporal": 2}),
-    ("sharded_pallas", {"temporal": 2, "mesh": (2,)}),
-    ("sharded_pallas", {"temporal": 2, "mesh": (2, 2)}),
-    ("rma", {"temporal": 2, "mesh": (2, 2)}),
+    ("streamed", {"temporal": 2, "chunks": 2}),
+    ("sharded", {"mesh": (2,)}),
+    ("sharded", {"mesh": (2, 2)}),
+    ("sharded_noverlap", {"mesh": (2, 2)}),
 ])
 def test_checkpoint_resume_across_methods(tmp_path, method, cfg_kwargs):
-    """Resume must work with every kernel family, not just the xla
-    baseline — the Pallas paths carry padded layouts and (for sharded)
-    a device mesh, none of which may leak into the checkpoint state."""
+    """Resume must work with every method family, not just the xla
+    baseline — streamed keeps the iterate on the host and the sharded
+    paths a device mesh, none of which may leak into the checkpoint
+    state."""
     spec = get_spec("jacobi7")
     grid = HaloGrid.create((16, 16, 24), halo=1, dtype="float32")
     cfg = RunConfig(size=(16, 16, 24), spec="jacobi7",

@@ -1,76 +1,79 @@
-"""Comm-volume regression proof: the testable single-chip proxy for the
+"""Comm-volume regression proof: the testable single-device proxy for the
 >=90% weak-scaling north star (BASELINE).
 
-The claim rests on a static property: a distributed outer step exchanges
-exactly ``2 * k * r`` ghost planes per sharded dim — bytes a function of
-the LOCAL block geometry only, independent of mesh size — and introduces
-no other collective (a hidden all-gather/reshard would scale with the
-global problem and sink weak scaling). These tests pin that property via
-jaxpr inspection (``parallel.comm_audit``) for the production
-``sharded_pallas`` path and via descriptor arithmetic for the in-kernel
-RMA path, so they FAIL the moment anyone adds a collective or widens a
-strip. The implied v5e-16 efficiency model is recorded in
-``results/weak_scaling_model.md``.
+The claim rests on a static property: a distributed sweep exchanges
+exactly ``2 * r`` ghost planes per sharded dim — bytes a function of the
+LOCAL block geometry only, independent of mesh size — and introduces no
+other collective (a hidden all-gather/reshard would scale with the global
+problem and sink weak scaling). These tests pin that property via jaxpr
+inspection (``parallel.comm_audit``) for the ``sharded`` path, so they
+FAIL the moment anyone adds a collective or widens a strip.
 """
 
 import jax
 import numpy as np
 import pytest
 
-from stencil_tpu.core.grid import DirichletBC, HaloGrid
+from stencil_tpu.core.grid import DirichletBC
 from stencil_tpu.core.spec import get_spec
 from stencil_tpu.parallel import comm_audit
-from stencil_tpu.parallel.halo import make_mesh
-from stencil_tpu.parallel.pallas_sharded import (
-    ShardedPallasStencil, _sharded_pallas_full_fn,
-)
+from stencil_tpu.parallel.halo import ShardedStencil, make_mesh
 
 
-def _audit_sharded_pallas(shape, mesh_sizes, k, spec_name="jacobi7"):
+def _audit_sharded(shape, mesh_sizes, overlap, spec_name="jacobi7"):
     spec = get_spec(spec_name)
     axes = ("x", "y")[: len(mesh_sizes)]
     mesh = make_mesh(mesh_sizes, axes)
-    method = ShardedPallasStencil(
-        spec, shape, axis_names=axes, sweeps_per_call=k, interpret=True,
-    )
+    names = axes + (None,) * (len(shape) - len(axes))
+    method = ShardedStencil(spec, names, overlap=overlap)
     bc = DirichletBC.reference_default(len(shape))
-    grid_halo = spec.radius
-    fn = _sharded_pallas_full_fn(method, mesh, bc, grid_halo)
-    data = jax.ShapeDtypeStruct(
-        tuple(s + 2 * grid_halo for s in shape), np.float32
-    )
+    fn = method.iterate_fn(mesh, bc)
+    data = jax.ShapeDtypeStruct(tuple(shape), np.float32)
     n = jax.ShapeDtypeStruct((), np.int32)
-    return method, mesh, comm_audit.audit_step(fn, data, n)
+    return spec, fn, comm_audit.audit_step(fn, data, n)
 
 
-def _expected_bytes_3d(plan, nsh):
-    """Independent strip-geometry derivation: per sharded dim, lo+hi
-    strips of depth k*r spanning the full padded extent of earlier
-    sharded dims + unsharded dims and the interior of later sharded
-    dims."""
-    P0, P1, P2 = plan.layout.padded_shape
-    n1 = plan.interior_shape[1]
-    kr = plan.halo
-    item = np.dtype(plan.dtype).itemsize
-    if nsh == 1:
-        return 2 * kr * P1 * P2 * item
-    return (2 * kr * n1 * P2 + 2 * kr * P0 * P2) * item
+def _expected_bytes(shape, mesh_sizes, r, overlap):
+    """Independent strip-geometry derivation per sweep. Without overlap
+    the dims are exchanged in order: each sharded dim's lo+hi strips are
+    ``r`` deep and span the ghost-extended extent of EARLIER dims and the
+    local interior of later ones. With overlap the minor dims go first
+    and the d0 strips span the ghost-extended minor extents."""
+    local = [n // (mesh_sizes[d] if d < len(mesh_sizes) else 1)
+             for d, n in enumerate(shape)]
+    nd = len(shape)
+    total = 0
+    if not overlap:
+        for d in range(len(mesh_sizes)):
+            ext = [local[e] + 2 * r if e < d else local[e]
+                   for e in range(nd)]
+            ext[d] = r
+            total += 2 * int(np.prod(ext))
+    else:
+        for d in range(1, len(mesh_sizes)):
+            ext = [local[e] + 2 * r if 0 < e < d else local[e]
+                   for e in range(nd)]
+            ext[d] = r
+            total += 2 * int(np.prod(ext))
+        total += 2 * r * int(np.prod([n + 2 * r for n in local[1:]]))
+    return total * 4
 
 
-@pytest.mark.parametrize("mesh_sizes,k", [
-    ((4,), 1), ((4,), 2), ((4,), 4), ((2, 4), 1), ((2, 4), 2),
-])
-def test_sharded_pallas_exchanges_exactly_the_halo(mesh_sizes, k):
-    shape = (16, 16, 20)
-    method, mesh, audit = _audit_sharded_pallas(shape, mesh_sizes, k)
-    nsh = len(mesh_sizes)
-    plan = method.local_plan(mesh_sizes)
+@pytest.mark.parametrize("spec_name", ["jacobi7", "star3d_r2"])
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("mesh_sizes", [(4,), (2, 4)])
+def test_sharded_pallas_exchanges_exactly_the_halo(mesh_sizes, overlap,
+                                                   spec_name):
+    # local d0 >= 4r on every mesh, so the overlapped split is taken
+    shape = (32, 16, 20)
+    spec, _, audit = _audit_sharded(shape, mesh_sizes, overlap, spec_name)
     assert audit["other_collectives"] == [], (
         "halo exchange must be pure ppermute; found "
         f"{audit['other_collectives']}"
     )
-    assert audit["ppermute_count"] == 2 * nsh
-    assert audit["ppermute_bytes"] == _expected_bytes_3d(plan, nsh)
+    assert audit["ppermute_count"] == 2 * len(mesh_sizes)
+    assert audit["ppermute_bytes"] == _expected_bytes(
+        shape, mesh_sizes, spec.radius, overlap)
 
 
 def test_sharded_pallas_comm_independent_of_mesh_size():
@@ -80,179 +83,82 @@ def test_sharded_pallas_comm_independent_of_mesh_size():
     results = []
     for n in (2, 4, 8):
         shape = (8 * n, 16, 20)  # local block fixed at (8, 16, 20)
-        _, _, audit = _audit_sharded_pallas(shape, (n,), 2)
+        _, _, audit = _audit_sharded(shape, (n,), True)
         assert audit["other_collectives"] == []
         results.append(audit["ppermute_bytes"])
     assert results[0] == results[1] == results[2]
 
 
-def test_sharded_pallas_2d_grid_slab_path():
-    spec = get_spec("jacobi5")
+@pytest.mark.parametrize("overlap", [False, True])
+def test_sharded_pallas_2d_grid_slab_path(overlap):
     shape = (64, 40)
-    mesh = make_mesh((4,), ("x",))
-    method = ShardedPallasStencil(spec, shape, sweeps_per_call=2,
-                                  interpret=True)
-    bc = DirichletBC.reference_default(2)
-    fn = _sharded_pallas_full_fn(method, mesh, bc, spec.radius)
-    data = jax.ShapeDtypeStruct(
-        tuple(s + 2 * spec.radius for s in shape), np.float32
-    )
-    audit = comm_audit.audit_step(fn, data,
-                                  jax.ShapeDtypeStruct((), np.int32))
-    plan = method.local_plan(4)
-    P1 = plan.layout.padded_shape[1]
+    spec, _, audit = _audit_sharded(shape, (4,), overlap, "jacobi5")
     assert audit["other_collectives"] == []
     assert audit["ppermute_count"] == 2
-    assert audit["ppermute_bytes"] == 2 * plan.halo * P1 * 4
+    assert audit["ppermute_bytes"] == _expected_bytes(
+        shape, (4,), spec.radius, overlap)
 
 
-def test_rma_all_comm_is_in_kernel():
-    """The RMA path moves halos with in-kernel remote DMA: its jitted
-    step must contain ZERO XLA-level collectives (the kernel is opaque to
-    the jaxpr; its strips are accounted by push_bytes_per_step)."""
-    from stencil_tpu.parallel.rma import RmaStencil, _rma_full_fn
-
-    spec = get_spec("jacobi7")
-    shape = (16, 16, 32)
-    mesh = make_mesh((2, 2), ("x", "y"))
-    method = RmaStencil(spec, shape, sweeps_per_call=2, interpret=True)
-    bc = DirichletBC.reference_default(3)
-    fn = _rma_full_fn(method, mesh, bc, spec.radius, 2)
-    data = jax.ShapeDtypeStruct(tuple(s + 2 for s in shape), np.float32)
-    found = comm_audit.collectives_in(
-        fn, data, jax.ShapeDtypeStruct((), np.int32)
-    )
-    assert found == []
-
-
-def test_rma_push_bytes_formula():
-    """Descriptor arithmetic for the in-kernel strips: d0 pushes are
-    exactly 2*k*r padded minor planes (granule 1 on the untiled dim);
-    mesh size never enters."""
-    from stencil_tpu.parallel.rma import make_rma_plan, push_bytes_per_step
-
-    spec = get_spec("jacobi7")
-    for k in (1, 2, 4):
-        plan = make_rma_plan(spec, (16, 16, 32), mesh_shape=(2,),
-                             sweeps_per_call=k)
-        B = plan.layout.padded_shape
-        assert push_bytes_per_step(plan) == 2 * k * 1 * B[1] * B[2] * 4
-    # 2D mesh: phase-0 strips cover d1-interior only, phase-1 strips the
-    # full padded d0 (corner transit) at the sublane-rounded depth
-    plan = make_rma_plan(spec, (16, 16, 32), mesh_shape=(2, 2),
-                         sweeps_per_call=2)
-    B = plan.layout.padded_shape
-    kr = 2
-    pd1 = plan.layout.pads[1][0]
-    expected = (2 * kr * 16 * B[2] + 2 * pd1 * B[0] * B[2]) * 4
-    assert push_bytes_per_step(plan) == expected
-    # mesh size is not a variable of the formula
-    for ms in ((2,), (4,), (8,)):
-        p = make_rma_plan(spec, (16, 16, 32), mesh_shape=ms,
-                          sweeps_per_call=2)
-        assert push_bytes_per_step(p) == push_bytes_per_step(
-            make_rma_plan(spec, (16, 16, 32), mesh_shape=(2,),
-                          sweeps_per_call=2)
-        )
+def _loop_body(jaxpr):
+    """The innermost jaxpr that contains the ppermutes (the per-sweep
+    loop body inside shard_map)."""
+    if any(e.primitive.name == "ppermute" for e in jaxpr.eqns):
+        return jaxpr
+    for eqn in jaxpr.eqns:
+        stack = list(eqn.params.values())
+        while stack:
+            u = stack.pop()
+            if isinstance(u, (tuple, list)):
+                stack.extend(u)
+            elif hasattr(u, "jaxpr") and hasattr(u.jaxpr, "eqns"):
+                r = _loop_body(u.jaxpr)
+                if r is not None:
+                    return r
+            elif hasattr(u, "eqns"):
+                r = _loop_body(u)
+                if r is not None:
+                    return r
+    return None
 
 
 def test_interior_kernel_is_independent_of_the_exchange():
-    """The static proof behind the overlapped sharded step: inside the
-    per-step loop body, the interior-tile kernel's transitive inputs
-    contain NO ppermute (XLA is free to overlap them), while the
-    edge-tile kernel depends on every ppermute. This is the
-    dependency-structure expression of the reference's interior-first
-    RMA pipeline — checkable on one chip."""
-    spec = get_spec("jacobi7")
-    shape = (96, 24, 32)
-    mesh = make_mesh((4,), ("x",))
-    # the small vmem budget forces 8x8 tiles on the (24, 24, 32) local
-    # block so a true interior tile exists (production blocks tile
-    # naturally; CPU-test blocks would fit one window)
-    method = ShardedPallasStencil(spec, shape, sweeps_per_call=2,
-                                  interpret=True, overlap=True,
-                                  vmem_budget=700_000)
-    from stencil_tpu.ops.pallas_tiled import partition_tiles
-
-    interior, edge = partition_tiles(method.local_plan(4))
-    assert interior and edge
-    bc = DirichletBC.reference_default(3)
-    fn = _sharded_pallas_full_fn(method, mesh, bc, 1)
-    data = jax.ShapeDtypeStruct((98, 26, 34), np.float32)
-    traced = jax.jit(fn).trace(data, jax.ShapeDtypeStruct((), np.int32))
-
-    # find the loop-body jaxpr that contains both ppermutes and the two
-    # sweep pjit calls
-    def find_body(jaxpr):
-        prims = [e.primitive.name for e in jaxpr.eqns]
-        if "ppermute" in prims:
-            return jaxpr
-        for eqn in jaxpr.eqns:
-            for v in eqn.params.values():
-                stack = [v]
-                while stack:
-                    u = stack.pop()
-                    if isinstance(u, (tuple, list)):
-                        stack.extend(u)
-                    elif hasattr(u, "jaxpr") and hasattr(u.jaxpr, "eqns"):
-                        r = find_body(u.jaxpr)
-                        if r is not None:
-                            return r
-                    elif hasattr(u, "eqns"):
-                        r = find_body(u)
-                        if r is not None:
-                            return r
-        return None
-
-    body = find_body(traced.jaxpr.jaxpr)
+    """The static proof behind the overlapped sharded sweep: inside the
+    per-sweep loop body, the interior band's transitive inputs contain
+    NO d0 ppermute (XLA is free to overlap them), while the two boundary
+    bands consume the exchanged strips. This is the dependency-structure
+    expression of the reference's interior-first RMA pipeline —
+    checkable on one device."""
+    _, fn, _ = _audit_sharded((96, 24, 32), (4,), True)
+    traced = jax.jit(fn).trace(jax.ShapeDtypeStruct((96, 24, 32),
+                                                    np.float32),
+                               jax.ShapeDtypeStruct((), np.int32))
+    body = _loop_body(traced.jaxpr.jaxpr)
     assert body is not None
-
-    def has_pallas(eqn):
-        for v in eqn.params.values():
-            stack = [v]
-            while stack:
-                u = stack.pop()
-                if isinstance(u, (tuple, list)):
-                    stack.extend(u)
-                elif hasattr(u, "jaxpr") and hasattr(u.jaxpr, "eqns"):
-                    stack.append(u.jaxpr)
-                elif hasattr(u, "eqns"):
-                    if any(e.primitive.name == "pallas_call"
-                           for e in u.eqns):
-                        return True
-                    stack.extend(u.eqns and [u2 for e in u.eqns
-                                             for u2 in e.params.values()])
-        return eqn.primitive.name == "pallas_call"
-
-    sweep_eqns = [e for e in body.eqns if has_pallas(e)]
-    assert len(sweep_eqns) == 2, (
-        f"expected interior+edge sweeps, found {len(sweep_eqns)}"
-    )
-    perm_eqns = [e for e in body.eqns if e.primitive.name == "ppermute"]
-    assert perm_eqns
-
-    # transitive ancestry within the body jaxpr
+    perm_ids = {id(e) for e in body.eqns if e.primitive.name == "ppermute"}
+    assert len(perm_ids) == 2
+    # the sweep's result: concatenate([lo_band, interior, hi_band], 0)
+    cat = [e for e in body.eqns if e.primitive.name == "concatenate"
+           and e.params["dimension"] == 0 and len(e.invars) == 3][-1]
     producer = {}
     for eqn in body.eqns:
         for ov in eqn.outvars:
             producer[id(ov)] = eqn
 
-    def ancestors(eqn, acc):
-        for iv in eqn.invars:
-            p = producer.get(id(iv))
+    def ancestors(var):
+        acc, stack = set(), [var]
+        while stack:
+            p = producer.get(id(stack.pop()))
             if p is not None and id(p) not in acc:
                 acc.add(id(p))
-                ancestors(p, acc)
+                stack.extend(p.invars)
         return acc
 
-    int_anc = ancestors(sweep_eqns[0], set())
-    edge_anc = ancestors(sweep_eqns[1], set())
-    perm_ids = {id(e) for e in perm_eqns}
-    assert not (int_anc & perm_ids), (
-        "interior sweep depends on the exchange — overlap impossible"
+    lo, inner, hi = (ancestors(v) for v in cat.invars)
+    assert not (inner & perm_ids), (
+        "interior band depends on the exchange — overlap impossible"
     )
-    assert perm_ids <= edge_anc, (
-        "edge sweep must consume every exchanged strip"
+    assert perm_ids <= (lo | hi), (
+        "boundary bands must consume every exchanged strip"
     )
 
 

@@ -29,12 +29,12 @@ def test_parse_defaults():
 
 def test_parse_reference_style_flags():
     # mirrors the reference CLI surface (program_options.cpp:13-37)
-    cfg = parse_args(["-s", "400", "400", "-i", "1000", "-b", "50",
-                      "-R", "3", "-m", "xla", "pallas", "-c", "-r", "2"])
+    # minus -b/--block-size, which sized the removed slab kernels
+    cfg = parse_args(["-s", "400", "400", "-i", "1000",
+                      "-R", "3", "-m", "xla", "sharded", "-c", "-r", "2"])
     assert cfg.size == (400, 400)
-    assert cfg.block == 50
     assert cfg.repeat == 3
-    assert cfg.methods == ("xla", "pallas")
+    assert cfg.methods == ("xla", "sharded")
     assert cfg.check
     sp = cfg.resolved_spec()
     assert sp.radius == 2 and sp.num_taps == 8
@@ -188,8 +188,8 @@ def test_every_config_field_is_consumed(tmp_path):
 
     cfg = TrackingConfig(
         size=(16, 16), iterations=2,
-        methods=("pallas", "pallas_temporal", "sharded"),
-        temporal=2, mesh=(2,), block=None, check=True,
+        methods=("xla", "streamed", "sharded"),
+        temporal=2, mesh=(2,), chunks=2, check=True,
         json_out=str(tmp_path / "o.jsonl"),
         dump_image=str(tmp_path / "h.bmp"),
         checkpoint_dir=str(tmp_path / "ckpt"), checkpoint_every=1,
@@ -209,7 +209,7 @@ def test_every_config_field_is_consumed(tmp_path):
              checkpoint_every=20, repeat=1),
         dict(solve="poisson", solver="pcg", iterations=40,
              smoother="chebyshev", gamma=2, nu_smooth=(1, 1),
-             fine_method="xla", precond_dtype="bfloat16",
+             precond_dtype="bfloat16",
              tolerance=1e-3, repeat=2,
              dump_image=str(tmp_path / "s.bmp"),
              json_out=str(tmp_path / "s.jsonl")),
@@ -217,7 +217,7 @@ def test_every_config_field_is_consumed(tmp_path):
              velocity=(1.0, 0.5), nu=0.5, scheme="upwind",
              tolerance=1e-3),
         dict(solve="hetero", solver="bicgstab", iterations=40,
-             contrast=10.0, op_kernel="xla", tolerance=1e-3),
+             contrast=10.0, tolerance=1e-3),
     ):
         scfg = TrackingConfig(size=(15, 15), **kw)
         cli.run_all(scfg, out=devnull)
@@ -346,7 +346,7 @@ def test_heat_matches_golden(rng):
 def test_cli_spec_rank_mismatch_is_clean_error(capsys):
     from stencil_tpu import cli
 
-    rc = cli.main(["-s", "64", "40", "64", "-m", "pallas", "-i", "2",
+    rc = cli.main(["-s", "64", "40", "64", "-m", "xla", "-i", "2",
                    "--platform", "cpu"])
     assert rc == 2
     assert "is 2D but size is 3D" in capsys.readouterr().err

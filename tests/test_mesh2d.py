@@ -1,7 +1,7 @@
 """2D-mesh distributed solvers (round-5 verdict item 4): the Krylov
-and multigrid stacks over a (2, 4) device mesh — the virtual-CPU twin
-of the v5e-16 4x4 torus (the analog of the reference's natively-2D
-8x8 CPE mesh, /root/reference/src/stencil/slave/stencil_rma.cpp:194).
+and multigrid stacks over a (2, 4) device mesh on virtual CPU devices
+(the analog of the reference's natively-2D 8x8 CPE mesh,
+src/stencil/slave/stencil_rma.cpp:194).
 
 Every solver must (a) accept a 2D mesh, (b) land on the single-device
 iterate bit-for-fp32-rounding, and (c) keep the collective profile

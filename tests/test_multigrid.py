@@ -116,46 +116,43 @@ def test_partial_depth_mixed_widths():
 
 
 def test_pallas_fine_level_matches_xla():
-    """fine_method='pallas_tiled' runs the fine level's smoothers +
-    residual on the fused-source tiled kernel; per-cycle contraction and
-    the iterate must match the XLA fine level up to fp32 reassociation."""
+    """n V-cycles in one traced-count call equal n single-cycle calls
+    (the runner's fori_loop carries the whole cycle state)."""
     shape = (15, 15, 15)
     prob = PoissonProblem(shape=shape)
     f, _ = manufactured_sine(shape)
-    mg_x = Multigrid(prob)
-    mg_p = Multigrid(prob, fine_method="pallas_tiled", interpret=True)
-    assert mg_p.runner(f).plan_info["fine_method"] == "pallas_tiled"
-    gx = prob.initial_grid()
-    gp = prob.initial_grid()
-    rx, rp = mg_x.runner(f), mg_p.runner(f)
+    r = Multigrid(prob).runner(f)
+    g1 = prob.initial_grid()
     for _ in range(3):
-        gx = rx.iterate(gx, 1)
-        gp = rp.iterate(gp, 1)
-    assert abs(mg_p.residual_norm(gp, f) - mg_x.residual_norm(gx, f)) \
-        < 1e-3 * mg_x.residual_norm(gx, f) + 1e-6
-    d = np.max(np.abs(np.asarray(gx.interior(), np.float64)
-                      - np.asarray(gp.interior(), np.float64)))
-    assert d < 5e-6, d
+        g1 = r.iterate(g1, 1)
+    g3 = r.iterate(prob.initial_grid(), 3)
+    np.testing.assert_allclose(np.asarray(g3.interior()),
+                               np.asarray(g1.interior()), atol=1e-6)
 
 
 def test_pallas_fine_smoother_specs():
-    from stencil_tpu.multigrid import residual_spec, wjacobi_spec
+    """Consistency of the XLA level passes: the weighted-Jacobi smoother
+    keeps a constant field with equal walls and f = 0 fixed, and the
+    residual annihilates it."""
+    import jax.numpy as jnp
 
-    s = wjacobi_spec(3, 2.0 / 3.0)
-    assert abs(sum(s.weights) - 1.0) < 1e-12  # consistency (A·1 ~ 1)
-    assert all(s.symmetric_in(d) for d in range(3))
-    r = residual_spec(3, 0.125)
-    assert abs(sum(r.weights)) < 1e-9  # -A annihilates constants
-    assert all(r.symmetric_in(d) for d in range(3))
+    from stencil_tpu.multigrid import _residual, _smooth
+
+    pad = jnp.full((11, 11, 11), 2.5, jnp.float32)
+    f = jnp.zeros((9, 9, 9), jnp.float32)
+    out = _smooth(pad, f, 2.0 / 3.0, 1.0 / 6.0, 3)
+    np.testing.assert_allclose(np.asarray(out), 2.5, atol=1e-6)
+    r = _residual(pad, f, 64.0, 6.0)
+    np.testing.assert_allclose(np.asarray(r), 0.0, atol=1e-4)
 
 
 def test_pallas_fine_gates():
-    with pytest.raises(ValueError, match="3D-only"):
-        Multigrid(PoissonProblem(shape=(31, 31)),
-                  fine_method="pallas_tiled")
-    with pytest.raises(ValueError, match="fine_method"):
+    with pytest.raises(ValueError, match="gamma"):
+        Multigrid(PoissonProblem(shape=(15, 15, 15)), gamma=3)
+    with pytest.raises(TypeError):
+        # the tiled fine level is gone; its option with it
         Multigrid(PoissonProblem(shape=(15, 15, 15)),
-                  fine_method="bogus")
+                  fine_method="pallas_tiled")
 
 
 def test_fmg_discretization_error_one_pass_2d():
@@ -235,15 +232,15 @@ def test_fmg_nonzero_walls():
 
 
 def test_fmg_pallas_fine_matches_xla():
+    """3D FMG: one pass with the default two V-cycles per level lands
+    at discretization-level error (measured ~0.38 h^2 at 15^3); one
+    V-cycle per level sits at the divergence threshold (~3.9 h^2)."""
     shape = (15, 15, 15)
     prob = PoissonProblem(shape=shape)
-    f, _ = manufactured_sine(shape)
-    gx = Multigrid(prob).fmg(f, n_vcycles=1)
-    gp = Multigrid(prob, fine_method="pallas_tiled",
-                   interpret=True).fmg(f, n_vcycles=1)
-    d = np.max(np.abs(np.asarray(gx.interior(), np.float64)
-                      - np.asarray(gp.interior(), np.float64)))
-    assert d < 5e-6, d
+    f, u = manufactured_sine(shape)
+    g = Multigrid(prob).fmg(f)
+    err = np.max(np.abs(np.asarray(g.interior(), np.float64) - u))
+    assert err < float(prob.h) ** 2, err
 
 
 def test_fmg_xla_pass_is_cached():
@@ -335,10 +332,6 @@ def test_sharded_runner_gates():
         Multigrid(prob).sharded_runner(f, _mesh1d(4), replicate_below=64)
     with pytest.raises(ValueError, match="out of range"):
         Multigrid(prob).sharded_runner(f, _mesh1d(4), dim=2)
-    prob3 = PoissonProblem(shape=(31, 31, 31))
-    with pytest.raises(ValueError, match="GSPMD"):
-        Multigrid(prob3, fine_method="pallas_tiled").sharded_runner(
-            np.zeros((31, 31, 31), np.float32), _mesh1d(4))
 
 
 def test_sharded_runner_really_distributes():
@@ -365,32 +358,25 @@ def test_sharded_runner_really_distributes():
 
 
 def test_wcycle_pallas_fine_matches_xla():
-    """gamma=2 with the Pallas fine level must apply the W recursion at
-    EVERY level (a round-4 fix: the fine-level branch used to visit its
-    coarse correction once regardless of gamma)."""
+    """gamma=2 applies the W recursion at every level: per cycle it
+    contracts at least as hard as the V-cycle."""
     shape = (15, 15, 15)
     prob = PoissonProblem(shape=shape)
     f, _ = manufactured_sine(shape)
-    gx = prob.initial_grid()
-    gp = prob.initial_grid()
-    rx = Multigrid(prob, gamma=2).runner(f)
-    rp = Multigrid(prob, gamma=2, fine_method="pallas_tiled",
-                   interpret=True).runner(f)
-    for _ in range(3):
-        gx = rx.iterate(gx, 1)
-        gp = rp.iterate(gp, 1)
-    d = np.max(np.abs(np.asarray(gx.interior(), np.float64)
-                      - np.asarray(gp.interior(), np.float64)))
-    assert d < 5e-6, d
+    res = {}
+    for gamma in (1, 2):
+        mg = Multigrid(prob, gamma=gamma)
+        g = mg.runner(f).iterate(prob.initial_grid(), 3)
+        res[gamma] = mg.residual_norm(g, f)
+    assert res[2] <= res[1], res
 
 
 def test_fmg_pallas_pass_is_cached_and_f_independent():
-    """The FMG pass must not bake f into the computation (a round-4
-    fix: concrete padded-source constants blew up the compile payload
-    at 511^3); one build serves every right-hand side."""
+    """The FMG pass must not bake f into the computation: one build
+    serves every right-hand side, and matches a fresh build."""
     shape = (15, 15, 15)
     prob = PoissonProblem(shape=shape)
-    mg = Multigrid(prob, fine_method="pallas_tiled", interpret=True)
+    mg = Multigrid(prob)
     f1, _ = manufactured_sine(shape)
     mg.fmg(f1, n_vcycles=1)
     fn = mg._fmg_cache[1]
@@ -488,44 +474,30 @@ def test_chebyshev_gates():
         Multigrid(prob3, smoother="sor")
     with pytest.raises(ValueError, match="cheby_ratio"):
         Multigrid(prob3, smoother="chebyshev", cheby_ratio=1.0)
-    # chebyshev + pallas on a NON-coarsenable grid: the single level is
-    # the coarsest (must relax wjacobi) -> refused with guidance
-    with pytest.raises(ValueError, match="2-level"):
-        Multigrid(PoissonProblem(shape=(16, 16, 16)),
-                  smoother="chebyshev", fine_method="pallas_tiled")
-
-
-# ---- Chebyshev smoothing ON the Pallas fine level (round-5 item 5:
-# the round-4 "mutually exclusive best levers" gap) -----------------
 
 
 @pytest.mark.parametrize("nu1,nu2,gamma", [(2, 2, 1), (3, 1, 1),
                                            (2, 2, 2)])
 def test_chebyshev_pallas_fine_matches_xla_cycle(nu1, nu2, gamma):
-    """The tiled kernel's per-virtual-sweep Chebyshev recurrence
-    (cheby_coeffs) must reproduce the XLA _smooth_cheby cycle to fp32
-    rounding — asymmetric nu, W-cycles, multiple cycles."""
+    """Chebyshev cycles with asymmetric nu and W recursion contract the
+    residual by at least 10x over three cycles from a random RHS."""
     prob = PoissonProblem(shape=(31, 31, 31))
     rng = np.random.default_rng(11)
     f = rng.normal(size=prob.shape).astype(np.float32)
-    kw = dict(nu1=nu1, nu2=nu2, gamma=gamma, smoother="chebyshev")
-    rx = Multigrid(prob, fine_method="xla", **kw).runner(f)
-    rp = Multigrid(prob, fine_method="pallas_tiled", interpret=True,
-                   **kw).runner(f)
+    mg = Multigrid(prob, nu1=nu1, nu2=nu2, gamma=gamma,
+                   smoother="chebyshev")
     g0 = prob.initial_grid()
-    ax = np.asarray(rx.iterate(g0, 3).interior(), np.float64)
-    ap = np.asarray(rp.iterate(g0, 3).interior(), np.float64)
-    np.testing.assert_allclose(ap, ax, atol=5e-6)
+    r0 = mg.residual_norm(g0, f)
+    r3 = mg.residual_norm(mg.runner(f).iterate(g0, 3), f)
+    assert np.isfinite(r3) and r3 < 0.1 * r0, (r0, r3)
 
 
 def test_chebyshev_pallas_fine_reaches_discretization_error():
     from stencil_tpu import solver
-    from stencil_tpu.models.poisson import manufactured_sine
 
     prob = PoissonProblem(shape=(31, 31, 31))
     f, u_exact = manufactured_sine(prob.shape, h=prob.h)
-    mg = Multigrid(prob, smoother="chebyshev",
-                   fine_method="pallas_tiled", interpret=True)
+    mg = Multigrid(prob, smoother="chebyshev")
     res = solver.solve(mg.runner(f.astype(np.float32)),
                        prob.initial_grid(), tolerance=1e-6,
                        max_iterations=30, check_every=1)
@@ -536,32 +508,59 @@ def test_chebyshev_pallas_fine_reaches_discretization_error():
 
 
 def test_pcg_chebyshev_pallas_preconditioner():
-    """Cheby+pallas cycle as the PCG preconditioner: same iteration
-    count as the cheby+XLA cycle (the operator is identical up to
-    rounding)."""
+    """A bfloat16 Chebyshev preconditioning cycle costs PCG at most two
+    iterations over the float32 cycle and reaches the same solution."""
     from stencil_tpu.krylov import ConjugateGradient
 
     prob = PoissonProblem(shape=(31, 31, 31))
     rng = np.random.default_rng(12)
     f = rng.normal(size=prob.shape).astype(np.float32)
-    rx = ConjugateGradient(
-        prob, preconditioner=Multigrid(prob, smoother="chebyshev"))         .solve(f, tolerance=1e-5, max_iterations=50)
-    rp = ConjugateGradient(
-        prob, preconditioner=Multigrid(
-            prob, smoother="chebyshev", fine_method="pallas_tiled",
-            interpret=True))         .solve(f, tolerance=1e-5, max_iterations=50)
-    assert rp.converged and rp.iterations == rx.iterations
+    pre = Multigrid(prob, smoother="chebyshev")
+    rx = ConjugateGradient(prob, preconditioner=pre).solve(
+        f, tolerance=1e-5, max_iterations=50)
+    rp = ConjugateGradient(prob, preconditioner=pre,
+                           precond_dtype="bfloat16").solve(
+        f, tolerance=1e-5, max_iterations=50)
+    assert rx.converged and rp.converged
+    assert rp.iterations <= rx.iterations + 2, (rp.iterations,
+                                                rx.iterations)
     np.testing.assert_allclose(np.asarray(rp.grid.interior()),
                                np.asarray(rx.grid.interior()),
-                               atol=5e-5)
+                               atol=5e-4)
+
+
+def _cheby_sweep_coeffs(nu, ratio, ndim, h):
+    """Per-sweep affine coefficients ``(c, n, pv, s)`` of the degree-nu
+    Chebyshev smoother written as a three-term recurrence
+
+      u_t = c_t u_{t-1} + n_t nbsum(u_{t-1}) + pv_t u_{t-2} + s_t f
+
+    (substitute ``d_{t-1} = u_{t-1} - u_{t-2}`` into ``_smooth_cheby``'s
+    recurrence) — an independent float64 reference for it."""
+    lmax = 2.0
+    lmin = lmax / float(ratio)
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    two_d = 2.0 * ndim
+    inv_d = (h * h) / two_d
+    out = []
+    a, b = 1.0 / theta, 0.0
+    rho_prev = 1.0 / sigma
+    for t in range(nu):
+        if t > 0:
+            rho = 1.0 / (2.0 * sigma - rho_prev)
+            b = rho * rho_prev
+            a = 2.0 * rho / delta
+            rho_prev = rho
+        out.append((1.0 + b - a, a / two_d, -b, -a * inv_d))
+    return tuple(out)
 
 
 def test_cheby_sweep_coeffs_match_smooth_cheby():
-    """The algebraic rewrite itself (u_t from d_t substitution) against
-    _smooth_cheby in float64 NumPy — independent of the kernel."""
-    from stencil_tpu.multigrid import (
-        _cheby_sweep_coeffs, _smooth_cheby,
-    )
+    """_smooth_cheby against its algebraic rewrite (u_t from the d_t
+    substitution) run in float64 NumPy."""
+    from stencil_tpu.multigrid import _smooth_cheby
 
     rng = np.random.default_rng(13)
     shape = (9, 9, 9)

@@ -8,10 +8,11 @@ cell-centered reflection under which the normal derivative vanishes.
 Validation strategy mirrors ``tests/test_periodic.py``, with a third,
 fully independent reference for the all-Neumann case: per-sweep
 ``np.pad(mode='symmetric')`` plus direct shifted-window sums (no shared
-ghost-fill code at all). Temporal blocking (k>1) on Neumann leading dims
-requires the stencil mirror-symmetric in that dim — only then does a
-sweep preserve the mirror extension the deep ghosts seed — and the
-kernels gate asymmetric specs with a clean error.
+ghost-fill code at all). The streamed method's k>1 chunk step on a
+Neumann d0 requires the stencil mirror-symmetric in d0 — only then does
+a sweep preserve the mirror extension its deep ghosts seed — and it
+gates asymmetric specs with a clean error; every other dim refreshes its
+mirror after each sweep and takes any spec.
 """
 
 import numpy as np
@@ -302,96 +303,57 @@ def test_native_golden_mixed_modes(rng):
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-13)
 
 
-# ---- 2D slab Pallas kernel ------------------------------------------------------
+# ---- streamed (out-of-core chunks) and sharded vs golden ------------------------
 
 
-def test_slab_neumann_lead_k1(rng):
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = S.jacobi5()
-    bc = DirichletBC.reference_default(2).with_neumann((0,))
-    x0 = rng.random((32, 40)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = PallasStencil(sp, (32, 40), interpret=True)
-    out = m.iterate(g, 5)
-    ref = golden.golden_iterate(x0, sp, 5, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
-
-
-def test_slab_neumann_lead_temporal(rng):
-    # Neumann d0 at k=8 (jacobi5 is mirror-symmetric in d0)
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = S.jacobi5()
-    bc = DirichletBC.reference_default(2).with_neumann((0,))
-    x0 = rng.random((32, 40)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = PallasStencil(sp, (32, 40), sweeps_per_call=8, interpret=True)
-    out = m.iterate(g, 19)
-    ref = golden.golden_iterate(x0, sp, 19, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
-
-
-def test_slab_neumann_lane_k1_slice(rng):
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = S.jacobi9()
-    bc = DirichletBC.reference_default(2).with_neumann((0, 1))
-    x0 = rng.random((24, 40)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = PallasStencil(sp, (24, 40), tap_mode="slice", interpret=True)
-    out = m.iterate(g, 5)
-    ref = golden.golden_iterate(x0, sp, 5, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
-
-
-def test_slab_neumann_asymmetric_gates_at_temporal(rng):
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = _asym_spec2d()
-    bc = DirichletBC.zero(2).with_neumann((0,))
-    g = HaloGrid.create((32, 40), halo=1, bc=bc)
-    m = PallasStencil(sp, (32, 40), sweeps_per_call=4, interpret=True)
-    with pytest.raises(ValueError, match="mirror-symmetric"):
-        m.iterate(g, 8)
-
-
-def test_slab_neumann_asymmetric_k1_ok(rng):
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = _asym_spec2d()
-    bc = DirichletBC.zero(2).with_neumann((0,))
-    x0 = rng.random((32, 40)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = PallasStencil(sp, (32, 40), interpret=True)
-    out = m.iterate(g, 5)
-    ref = golden.golden_iterate(x0, sp, 5, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
-
-
-# ---- tiled 3D Pallas kernel -----------------------------------------------------
-
-
-def _check_tiled(sp, shape, bc, k, iters, rng, tap_mode=None,
-                 dtype="float32", tol=None):
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
+def _check_tiled(sp, shape, bc, k, iters, rng, dtype="float32", tol=None,
+                 chunks=2):
+    """The streamed method (``chunks`` d0 chunks, ``k`` sweeps per chunk
+    round trip) against the float64 golden."""
+    from stencil_tpu.streaming import StreamedStencil
 
     x0 = rng.random(shape).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0).astype(dtype),
-                               halo=sp.radius, bc=bc)
-    m = TiledPallasStencil(sp, shape, dtype=dtype, sweeps_per_call=k,
-                           interpret=True, tap_mode=tap_mode)
-    out = m.iterate(g, iters)
+    m = StreamedStencil(sp, shape, dtype=dtype, sweeps_per_call=k,
+                        chunks=chunks)
+    out = m.iterate_host(x0.astype(dtype), iters, bc=bc)
     ref = golden.golden_iterate(x0, sp, iters, bc=bc)
     kw = {} if tol is None else {"tolerance": tol}
-    chk = golden.check_against_golden(
-        np.asarray(out.interior(), dtype=np.float64), ref, **kw
-    )
+    chk = golden.check_against_golden(np.asarray(out, np.float64), ref,
+                                      **kw)
     assert chk.ok, chk.message()
+
+
+def test_slab_neumann_lead_k1():
+    bc = DirichletBC.reference_default(2).with_neumann((0,))
+    _run_sharded_neumann(S.jacobi5(), (32, 40), (2, 2), ("x", "y"), bc, 5,
+                         True)
+
+
+def test_slab_neumann_lead_temporal():
+    # a long run over a mirrored sharded d0
+    bc = DirichletBC.reference_default(2).with_neumann((0,))
+    _run_sharded_neumann(S.jacobi5(), (32, 40), (4,), ("x", None), bc, 19,
+                         True)
+
+
+def test_slab_neumann_lane_k1_slice():
+    bc = DirichletBC.reference_default(2).with_neumann((0, 1))
+    _run_sharded_neumann(S.jacobi9(), (24, 40), (2, 2), ("x", "y"), bc, 5,
+                         False)
+
+
+def test_slab_neumann_asymmetric_gates_at_temporal():
+    # the sharded sweep refreshes mirrors every sweep, so a spec
+    # asymmetric in the mirrored, sharded dim needs no gate there
+    bc = DirichletBC.zero(2).with_neumann((0,))
+    _run_sharded_neumann(_asym_spec2d(), (32, 40), (4,), ("x", None), bc,
+                         8, True)
+
+
+def test_slab_neumann_asymmetric_k1_ok():
+    bc = DirichletBC.zero(2).with_neumann((0, 1))
+    _run_sharded_neumann(_asym_spec2d(), (32, 40), (2, 2), ("x", "y"), bc,
+                         5, True)
 
 
 @pytest.mark.parametrize("dims", [(0,), (1,), (0, 1)])
@@ -403,8 +365,7 @@ def test_tiled_neumann_leading_dims(rng, dims, k):
 
 def test_tiled_neumann_rotacc_box(rng):
     bc = DirichletBC.reference_default(3).with_neumann((0, 1))
-    _check_tiled(S.get_spec("jacobi27"), (16, 24, 20), bc, 4, 8, rng,
-                 tap_mode="rotacc")
+    _check_tiled(S.get_spec("jacobi27"), (16, 24, 20), bc, 4, 8, rng)
 
 
 def test_tiled_neumann_radius2(rng):
@@ -431,32 +392,27 @@ def test_tiled_mixed_periodic_neumann(rng):
 
 def test_tiled_neumann_lane_k1_slice(rng):
     bc = DirichletBC.reference_default(3).with_neumann((2,))
-    _check_tiled(S.get_spec("jacobi27"), (12, 16, 20), bc, 1, 4, rng,
-                 tap_mode="slice")
+    _check_tiled(S.get_spec("jacobi27"), (12, 16, 20), bc, 1, 4, rng)
 
 
-def test_tiled_neumann_lane_gates_at_temporal():
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
-    sp = S.get_spec("jacobi7")
+def test_tiled_neumann_lane_gates_at_temporal(rng):
+    # a Neumann lane dim at k=4 runs on the streamed chunk step (its
+    # mirror is refreshed after every sweep)
     bc = DirichletBC.reference_default(3).with_neumann((2,))
-    g = HaloGrid.create((16, 16, 16), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (16, 16, 16), sweeps_per_call=4,
-                           interpret=True)
-    with pytest.raises(ValueError, match="k 1"):
-        m.iterate(g, 4)
+    _check_tiled(S.get_spec("jacobi7"), (16, 16, 16), bc, 4, 8, rng)
 
 
 def test_tiled_neumann_asymmetric_gates_at_temporal():
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
+    # a spec asymmetric in d0 at k>1 with a Neumann d0 is refused
+    from stencil_tpu.streaming import StreamedStencil
 
-    sp = _asym_spec3d()  # asymmetric in dim 1
-    bc = DirichletBC.zero(3).with_neumann((1,))
-    g = HaloGrid.create((16, 16, 16), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (16, 16, 16), sweeps_per_call=4,
-                           interpret=True)
+    sp = S.weighted(3, [((-1, 0, 0), 0.5), ((1, 0, 0), 0.1),
+                        ((0, 1, 0), 0.2), ((0, -1, 0), 0.2)],
+                    name="asym_d0")
+    bc = DirichletBC.zero(3).with_neumann((0,))
+    m = StreamedStencil(sp, (16, 16, 16), sweeps_per_call=4, chunks=2)
     with pytest.raises(ValueError, match="mirror-symmetric"):
-        m.iterate(g, 4)
+        m.iterate_host(np.zeros((16, 16, 16), np.float32), 4, bc=bc)
 
 
 def test_tiled_neumann_asymmetric_k1_ok(rng):
@@ -466,8 +422,9 @@ def test_tiled_neumann_asymmetric_k1_ok(rng):
 
 
 def test_tiled_neumann_asymmetric_temporal_ok_on_symmetric_dim(rng):
-    # the same spec IS symmetric in dim 0 — Neumann dim 0 runs at k>1
-    bc = DirichletBC.zero(3).with_neumann((0,))
+    # the same spec IS symmetric in dim 0 — Neumann dim 0 runs at k>1,
+    # and its asymmetric (refreshed) dim 1 may be Neumann too
+    bc = DirichletBC.zero(3).with_neumann((0, 1))
     _check_tiled(_asym_spec3d(), (16, 24, 20), bc, 4, 8, rng)
 
 
@@ -531,58 +488,48 @@ def test_sharded_neumann_3d():
 
 
 def test_rma_gates_cleanly_on_lane_neumann():
-    # leading Neumann dims are supported on 'rma' (sharded: in-kernel
-    # mirror synthesis; unsharded: local refresh at iteration start,
-    # tests/test_rma.py) — only the LANE dim gates (the VMEM-resident
-    # sweeps cannot see the opposite lane face mid-call)
-    sp = S.jacobi5()
+    # a Neumann lane dim on a sharded 2D grid (local mirror strips)
     bc = DirichletBC.reference_default(2).with_neumann((1,))
-    g = HaloGrid.create((16, 16), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 16), iterations=2, methods=("rma",))
-    with pytest.raises(ValueError, match="LANE"):
-        registry.get_runner("rma", cfg, sp, g)
+    _run_sharded_neumann(S.jacobi9(), (32, 40), (4,), ("x", None), bc, 5,
+                         True)
 
 
 def test_sharded_pallas_gates_on_dynamic_lane():
-    sp = S.jacobi5()
-    bc = DirichletBC.reference_default(2).with_neumann((1,))
-    g = HaloGrid.create((16, 16), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 16), iterations=2,
-                    methods=("sharded_pallas",), mesh=(2,))
-    with pytest.raises(ValueError, match="lane"):
-        registry.get_runner("sharded_pallas", cfg, sp, g)
+    # a Neumann lane dim on a 3D grid sharded over a 2x2 mesh
+    bc = DirichletBC.reference_default(3).with_neumann((2,))
+    _run_sharded_neumann(S.get_spec("jacobi27"), (16, 16, 20), (2, 2),
+                         ("x", "y", None), bc, 4, True)
 
 
 def test_sharded_pallas_gates_asymmetric_neumann_at_temporal():
-    sp = _asym_spec3d()  # asymmetric in dim 1
+    # asymmetric taps in the SHARDED, mirrored dim 1: mesh-edge devices
+    # mirror their own strips every sweep
     bc = DirichletBC.zero(3).with_neumann((1,))
-    g = HaloGrid.create((16, 16, 16), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 16, 16), iterations=8, temporal=4,
-                    methods=("sharded_pallas",), mesh=(2,))
-    with pytest.raises(ValueError, match="mirror-symmetric"):
-        registry.get_runner("sharded_pallas", cfg, sp, g)
+    _run_sharded_neumann(_asym_spec3d(), (16, 16, 16), (2, 2),
+                         ("x", "y", None), bc, 6, True)
 
 
-def test_registry_tiled_neumann_leading(rng):
+def test_registry_tiled_neumann_leading():
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_neumann((0, 1))
     g = HaloGrid.create((16, 24, 20), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 24, 20), spec="jacobi7",
-                    methods=("pallas_temporal",))
-    runner = registry.get_runner("pallas_temporal", cfg, sp, g)
+    cfg = RunConfig(size=(16, 24, 20), spec="jacobi7", temporal=4,
+                    chunks=2, methods=("streamed",))
+    runner = registry.get_runner("streamed", cfg, sp, g)
     out = runner.iterate(g, 8)
     ref = golden.golden_iterate(np.zeros((16, 24, 20)), sp, 8, bc=bc)
     chk = golden.check_against_golden(np.asarray(out.interior()), ref)
     assert chk.ok, chk.message()
 
 
-def test_registry_neumann_lane_defaults_to_slice(rng):
+def test_registry_neumann_lane_defaults_to_slice():
+    # the registry's sharded runner on a Neumann lane dim
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_neumann((2,))
     g = HaloGrid.create((12, 16, 20), halo=1, bc=bc)
-    cfg = RunConfig(size=(12, 16, 20), spec="jacobi7", methods=("pallas",))
-    runner = registry.get_runner("pallas", cfg, sp, g)
-    assert runner.plan_info["tap_mode"] == "slice"
+    cfg = RunConfig(size=(12, 16, 20), spec="jacobi7", mesh=(2, 2),
+                    methods=("sharded",))
+    runner = registry.get_runner("sharded", cfg, sp, g)
     out = runner.iterate(g, 3)
     ref = golden.golden_iterate(np.zeros((12, 16, 20)), sp, 3, bc=bc)
     chk = golden.check_against_golden(np.asarray(out.interior()), ref)
@@ -603,11 +550,11 @@ def test_cli_mixed_periodic_neumann_pallas_checked(tmp_path):
     from stencil_tpu.cli import run_all
 
     cfg = RunConfig(size=(16, 20, 24), spec="jacobi7", iterations=8,
-                    methods=("pallas",), check=True,
-                    periodic=("0",), neumann=("1",),
+                    methods=("streamed", "sharded"), check=True,
+                    periodic=("0",), neumann=("1",), chunks=2, mesh=(2,),
                     json_out=str(tmp_path / "out.jsonl"))
     results = run_all(cfg, out=open("/dev/null", "w"))
-    assert results[0]["check"]["ok"]
+    assert [r["check"]["ok"] for r in results] == [True, True]
 
 
 def test_cli_neumann_all_parses_and_runs():
@@ -667,10 +614,9 @@ def test_checkpoint_preserves_neumann(tmp_path, rng):
 @pytest.mark.parametrize("seed", range(8))
 def test_fuzz_random_bc_modes_tiled(seed):
     """Random per-dim BC modes (Dirichlet/periodic/Neumann) x random
-    ragged shapes x random temporal depth through the auto-planned tiled
-    kernel, differential vs golden — the dynamic-BC analog of the
-    round-3 ragged-shape fuzz."""
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
+    ragged shapes x random streamed depth and chunk count, differential
+    vs golden."""
+    from stencil_tpu.streaming import StreamedStencil
 
     rng = np.random.default_rng(1000 + seed)
     shape = tuple(int(rng.integers(10, 28)) for _ in range(3))
@@ -682,17 +628,16 @@ def test_fuzz_random_bc_modes_tiled(seed):
         bc = bc.with_periodic(per)
     if neu:
         bc = bc.with_neumann(neu)
-    lane_dynamic = modes[2] != 0
-    k = 1 if lane_dynamic else int(rng.choice([1, 2, 4]))
-    tap_mode = "slice" if lane_dynamic else None
-    iters = int(rng.integers(1, 3)) * k + int(rng.integers(0, k))
-    iters = max(iters, 1)
+    k = int(rng.choice([1, 2, 4]))
+    chunks = int(rng.integers(1, 4))
+    while chunks > 1 and shape[0] // chunks < k:
+        chunks -= 1
+    iters = max(int(rng.integers(1, 3)) * k + int(rng.integers(0, k)), 1)
 
     x0 = rng.random(shape).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = TiledPallasStencil(S.get_spec("jacobi7"), shape, sweeps_per_call=k,
-                           interpret=True, tap_mode=tap_mode)
-    out = m.iterate(g, iters)
+    m = StreamedStencil(S.get_spec("jacobi7"), shape, sweeps_per_call=k,
+                        chunks=chunks)
+    out = m.iterate_host(x0, iters, bc=bc)
     ref = golden.golden_iterate(x0, S.get_spec("jacobi7"), iters, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, (shape, modes, k, iters, chk.message())
+    chk = golden.check_against_golden(out, ref)
+    assert chk.ok, (shape, modes, k, chunks, iters, chk.message())

@@ -1,9 +1,8 @@
 """Periodic (wrap-around) boundary conditions.
 
 A capability extension beyond the reference, which is Dirichlet-only
-(``stencil.cpp:190-207``). Stage 1 supports periodic dims on the XLA
-method and both golden models (NumPy + native C++); the Pallas/sharded
-methods gate with a clean error until their stages land.
+(``stencil.cpp:190-207``). Every method (xla, sharded, streamed) and
+both golden models (NumPy + native C++) support periodic dims.
 
 Validation strategy mirrors the framework's differential-testing
 doctrine with a third, fully independent reference for the all-periodic
@@ -222,189 +221,99 @@ def test_native_golden_periodic_matches_numpy(rng, spec_name, shape, dims):
 # ---- method gating + CLI -----------------------------------------------------
 
 
-@pytest.mark.parametrize("method", [
-    "pallas_temporal", "sharded_pallas", "rma",
-])
+REMOVED_METHODS = ["pallas", "pallas_temporal", "pallas_tiled",
+                   "sharded_pallas", "rma"]
+
+
+@pytest.mark.parametrize("method", REMOVED_METHODS)
 def test_unsupported_methods_gate_cleanly(method):
-    # periodic LANE dim: sharded_pallas/rma refuse any periodic grid;
-    # pallas_temporal refuses because the lane dim needs k=1 (its
-    # leading-dim periodic support is covered below)
+    # removed kernel methods: the registry names them unknown instead
+    # of running something else in their place
     sp = S.jacobi5()
     bc = DirichletBC.reference_default(2).with_periodic((1,))
     g = HaloGrid.create((16, 16), halo=1, bc=bc)
     cfg = RunConfig(size=(16, 16), iterations=2, methods=(method,))
-    with pytest.raises(ValueError, match="periodic|k 1"):
+    with pytest.raises(ValueError, match="unknown method"):
         registry.get_runner(method, cfg, sp, g)
 
 
-def test_rma_gates_on_lane_periodic():
-    # the in-kernel RMA path supports periodic on any LEADING dim
-    # (sharded: circular ring push topology; unsharded: local wrap
-    # refresh at iteration start — tests/test_rma.py); only the LANE dim
-    # must be refused eagerly with guidance
+def _streamed_check(sp, shape, bc, k, chunks, iters, rng):
+    from stencil_tpu.streaming import StreamedStencil
+
+    x0 = rng.random(shape).astype(np.float32)
+    m = StreamedStencil(sp, shape, sweeps_per_call=k, chunks=chunks)
+    out = m.iterate_host(x0, iters, bc=bc)
+    ref = golden.golden_iterate(x0, sp, iters, bc=bc)
+    chk = golden.check_against_golden(out, ref)
+    assert chk.ok, chk.message()
+
+
+def test_periodic_lane_temporal_blocking_gates(rng):
+    # a periodic LANE dim at k>1 is no longer gated: the streamed chunk
+    # step refreshes every non-chunked dim's wrap after each sweep
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic((2,))
-    g = HaloGrid.create((16, 16, 16), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 16, 16), spec="jacobi7", iterations=2,
-                    methods=("rma",), mesh=(2,))
-    with pytest.raises(ValueError, match="LANE"):
-        registry.get_runner("rma", cfg, sp, g)
+    _streamed_check(sp, (16, 16, 16), bc, 4, 2, 9, rng)
 
 
 def test_rma_gates_eagerly_on_shallow_unsharded_dynamic_dim():
-    # an unsharded dynamic dim shallower than the k*r temporal ghost
-    # depth must be refused at runner construction (CLI 'unavailable'),
-    # not as a mid-run traceback
-    sp = S.get_spec("jacobi7")
-    bc = DirichletBC.reference_default(3).with_periodic((1,))
-    g = HaloGrid.create((16, 3, 16), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 3, 16), spec="jacobi7", iterations=8,
-                    temporal=4, methods=("rma",), mesh=(2,))
-    with pytest.raises(ValueError, match="shallower"):
-        registry.get_runner("rma", cfg, sp, g)
+    # a periodic d0 shallower than the streamed k*r ghost depth must be
+    # refused eagerly, not produce a mid-run traceback
+    from stencil_tpu.streaming import StreamedStencil
 
-
-def test_direct_iterate_gates_too():
-    # defense for direct API use (bypassing the registry): the default
-    # tap mode (synth) synthesizes the LANE boundary as Dirichlet and
-    # must refuse a lane-periodic grid
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
-    sp = S.get_spec("jacobi7")
-    bc = DirichletBC.reference_default(3).with_periodic((2,))
-    g = HaloGrid.create((8, 8, 8), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (8, 8, 8), interpret=True)
-    with pytest.raises(ValueError, match="periodic"):
-        m.iterate(g, 1)
-
-
-def test_periodic_lane_temporal_blocking_gates():
-    # a periodic LANE dim at k>1 would need the in-VMEM virtual sweeps
-    # to see the opposite lane face mid-call — the registry must refuse
-    # with guidance rather than compute wrong halos
-    sp = S.get_spec("jacobi7")
-    bc = DirichletBC.reference_default(3).with_periodic((2,))
-    g = HaloGrid.create((16, 16, 16), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 16, 16), spec="jacobi7", temporal=4,
-                    methods=("pallas_tiled",))
-    with pytest.raises(ValueError, match="k 1"):
-        registry.get_runner("pallas_tiled", cfg, sp, g)
-
-
-def test_periodic_synth_tap_mode_gates():
-    sp = S.get_spec("jacobi7")
-    bc = DirichletBC.reference_default(3).with_periodic((2,))
-    g = HaloGrid.create((16, 16, 16), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 16, 16), spec="jacobi7",
-                    methods=("pallas_tiled",), tap_mode="synth")
-    with pytest.raises(ValueError, match="ghost-reading"):
-        registry.get_runner("pallas_tiled", cfg, sp, g)
-
-
-def test_periodic_embed_slide_gate():
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic((0,))
-    g = HaloGrid.create((16, 16, 16), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 16, 16), spec="jacobi7",
-                    methods=("pallas_tiled",), embed=True)
-    with pytest.raises(ValueError, match="embed"):
-        registry.get_runner("pallas_tiled", cfg, sp, g)
+    m = StreamedStencil(sp, (3, 16, 16), sweeps_per_call=4, chunks=1)
+    with pytest.raises(ValueError, match="interior extent"):
+        m.iterate_host(np.zeros((3, 16, 16), np.float32), 8, bc=bc)
 
 
-# ---- Pallas kernels (interpret mode) vs golden -------------------------------
+# ---- sharded and streamed methods vs golden ---------------------------------
 
 
 @pytest.mark.parametrize("dims", [(0,), (1,), (0, 1)])
-@pytest.mark.parametrize("spec_name", ["jacobi5", "jacobi9"])
-def test_slab_kernel_matches_golden_periodic_2d(rng, spec_name, dims):
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = S.get_spec(spec_name)
-    bc = DirichletBC.reference_default(2).with_periodic(dims)
-    x0 = rng.random((24, 40)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=sp.radius, bc=bc)
-    m = PallasStencil(sp, (24, 40), interpret=True, tap_mode="slice")
-    out = m.iterate(g, 6)
-    ref = golden.golden_iterate(x0, sp, 6, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+@pytest.mark.parametrize("spec_name", ["jacobi5", "jacobi9", "star2d_r2"])
+def test_slab_kernel_matches_golden_periodic_2d(spec_name, dims):
+    # 2D grids over a 2D mesh: periodic on each sharded dim in turn
+    _run_sharded_periodic(S.get_spec(spec_name), (32, 48), (4, 2),
+                          ("x", "y"), dims, 6, True)
 
 
-@pytest.mark.parametrize("tap_mode", ["slice", "roll"])
+@pytest.mark.parametrize("k", [1, 2])
 @pytest.mark.parametrize("dims", [(0,), (1,), (2,), (0, 1, 2)])
-def test_tiled_kernel_matches_golden_periodic_3d(rng, tap_mode, dims):
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
+def test_tiled_kernel_matches_golden_periodic_3d(rng, k, dims):
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic(dims)
-    x0 = rng.random((12, 16, 20)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (12, 16, 20), interpret=True,
-                           tap_mode=tap_mode)
-    out = m.iterate(g, 5)
-    ref = golden.golden_iterate(x0, sp, 5, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+    _streamed_check(sp, (12, 16, 20), bc, k, 3, 5, rng)
 
 
 @pytest.mark.parametrize("spec_name", ["jacobi27", "laplace3d_ho"])
 def test_tiled_kernel_periodic_box_and_r2(rng, spec_name):
-    # box corners and radius-2 ghost rings through the wrap
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
+    # box corners and radius-2 ghost rings through the wrap and the
+    # chunk faces
     sp = S.get_spec(spec_name)
     bc = DirichletBC.reference_default(3).with_periodic((0, 2))
-    x0 = rng.random((12, 16, 20)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=sp.radius, bc=bc)
-    m = TiledPallasStencil(sp, (12, 16, 20), interpret=True,
-                           tap_mode="slice")
-    out = m.iterate(g, 4)
-    ref = golden.golden_iterate(x0, sp, 4, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+    _streamed_check(sp, (12, 16, 20), bc, 1, 2, 4, rng)
 
 
 def test_tiled_kernel_periodic_ragged(rng):
-    # clamped overlapping last tiles + periodic wrap (13 and 17 are
-    # ragged in every tile set)
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
-    sp = S.get_spec("jacobi7")
-    bc = DirichletBC.periodic_all(3)
-    x0 = rng.random((13, 17, 19)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (13, 17, 19), interpret=True,
-                           tap_mode="slice")
-    out = m.iterate(g, 3)
-    ref = golden.golden_iterate(x0, sp, 3, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+    # ragged chunk extents (13 over 2 chunks) + periodic wrap everywhere
+    _streamed_check(S.get_spec("jacobi7"), (13, 17, 19),
+                    DirichletBC.periodic_all(3), 1, 2, 3, rng)
 
 
-def test_registry_pallas_periodic_defaults_to_slice(rng):
-    # method 'pallas' on a LANE-periodic 3D grid must come back runnable
-    # with a ghost-reading tap mode picked automatically; a lead-only
-    # periodic grid keeps the fast default tap mode
+def test_registry_pallas_periodic_defaults_to_slice():
+    # the streamed method through the registry (the CLI's dispatch) on
+    # a lane- and d0-periodic grid
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic((0, 2))
     g = HaloGrid.create((12, 16, 20), halo=1, bc=bc)
     cfg = RunConfig(size=(12, 16, 20), spec="jacobi7",
-                    methods=("pallas",))
-    runner = registry.get_runner("pallas", cfg, sp, g)
-    assert runner.plan_info["tap_mode"] == "slice"
+                    methods=("streamed",), chunks=2)
+    runner = registry.get_runner("streamed", cfg, sp, g)
+    assert runner.plan_info["chunks"] == 2
     out = runner.iterate(g, 3)
-    ref = golden.golden_iterate(
-        np.zeros((12, 16, 20)), sp, 3, bc=bc
-    )
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
-
-    bc_lead = DirichletBC.reference_default(3).with_periodic((0,))
-    g_lead = HaloGrid.create((12, 16, 20), halo=1, bc=bc_lead)
-    lead = registry.get_runner("pallas", cfg, sp, g_lead)
-    assert lead.plan_info["tap_mode"] in ("synth", "rotacc")
-    out = lead.iterate(g_lead, 3)
-    ref = golden.golden_iterate(np.zeros((12, 16, 20)), sp, 3, bc=bc_lead)
+    ref = golden.golden_iterate(np.zeros((12, 16, 20)), sp, 3, bc=bc)
     chk = golden.check_against_golden(np.asarray(out.interior()), ref)
     assert chk.ok, chk.message()
 
@@ -433,19 +342,20 @@ def test_cli_periodic_unsupported_method_reports_unavailable(capsys):
     rc = cli.main(["-s", "16", "16", "-i", "2", "-m", "pallas_temporal",
                    "--periodic", "1", "--platform", "cpu"])
     assert rc == 1
-    assert "periodic" in capsys.readouterr().out
+    assert "unknown method 'pallas_temporal'" in capsys.readouterr().out
 
 
 def test_cli_periodic_pallas_checked(tmp_path):
-    # the flagship kernel path end-to-end under --periodic, checked
+    # the streamed and sharded paths end-to-end under --periodic, checked
     from stencil_tpu.cli import run_all
 
     cfg = RunConfig(size=(12, 16, 20), spec="jacobi7", iterations=6,
-                    methods=("pallas",), check=True, periodic=("0", "2"),
+                    methods=("streamed", "sharded"), check=True,
+                    periodic=("0", "2"), chunks=2, mesh=(2, 2),
                     json_out=str(tmp_path / "out.jsonl"))
     results = run_all(cfg, out=open("/dev/null", "w"))
-    assert results[0]["check"]["ok"]
-    assert results[0]["plan"]["tap_mode"] == "slice"
+    assert [r["check"]["ok"] for r in results] == [True, True]
+    assert results[0]["plan"]["chunks"] == 2
 
 
 def test_periodic_dims_normalization():
@@ -455,124 +365,66 @@ def test_periodic_dims_normalization():
     assert cfg.periodic_dims() == (1,)
 
 
-# ---- temporal blocking (k>1) with periodic leading dims ----------------------
+# ---- streamed temporal depth (k>1) with periodic dims ------------------------
 #
-# Periodic d0/d1 ride the kernels' pins mechanism (Dirichlet re-pinning
-# disabled on those faces, exactly like the sharded paths' mesh-internal
-# faces) with a k*r-deep wrap refresh between kernel calls — so the FULL
-# temporal-blocked fast path, including the boundary-synthesizing synth/
-# rotacc tap modes (which only synthesize the lane boundary), stays
-# available.
+# The streamed chunk step runs k sweeps per host round trip on k*r-deep
+# ghost rows; periodic d0 ghosts are wrapped rows of the previous iterate
+# (live data, recomputed in the trapezoid), other periodic dims refresh
+# their wrap after every sweep.
 
 
 @pytest.mark.parametrize("dims", [(0,), (1,), (0, 1)])
 @pytest.mark.parametrize("k", [4, 8])
 def test_tiled_temporal_periodic_leading_dims(rng, dims, k):
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic(dims)
-    x0 = rng.random((16, 24, 20)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (16, 24, 20), sweeps_per_call=k,
-                           interpret=True)
-    # the fast (lane-boundary-synthesizing) default stays legal
-    assert m.plan.tap_mode in ("synth", "rotacc")
-    out = m.iterate(g, 2 * k + 3)      # exercises the k'=3 remainder too
-    ref = golden.golden_iterate(x0, sp, 2 * k + 3, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+    # 2k + 3 iterations exercise the k'=3 remainder step too
+    _streamed_check(sp, (16, 24, 20), bc, k, 2, 2 * k + 3, rng)
 
 
 def test_tiled_temporal_periodic_rotacc_box(rng):
-    # rotacc (separable box evaluator) with periodic d0/d1 at k=4
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
     sp = S.get_spec("jacobi27")
     bc = DirichletBC.reference_default(3).with_periodic((0, 1))
-    x0 = rng.random((16, 24, 20)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (16, 24, 20), sweeps_per_call=4,
-                           interpret=True, tap_mode="rotacc")
-    out = m.iterate(g, 8)
-    ref = golden.golden_iterate(x0, sp, 8, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+    _streamed_check(sp, (16, 24, 20), bc, 4, 2, 8, rng)
 
 
 def test_tiled_temporal_periodic_radius2(rng):
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
     sp = S.get_spec("laplace3d_ho")
     bc = DirichletBC.reference_default(3).with_periodic((0, 1))
-    x0 = rng.random((14, 18, 16)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=2, bc=bc)
-    m = TiledPallasStencil(sp, (14, 18, 16), sweeps_per_call=3,
-                           interpret=True)
-    out = m.iterate(g, 6)
-    ref = golden.golden_iterate(x0, sp, 6, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+    _streamed_check(sp, (14, 18, 16), bc, 3, 2, 6, rng)
 
 
 def test_tiled_temporal_periodic_ragged(rng):
-    # clamped overlapping last tiles + periodic d0/d1 + temporal depth
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic((0, 1))
-    x0 = rng.random((13, 17, 19)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (13, 17, 19), sweeps_per_call=4,
-                           interpret=True)
-    out = m.iterate(g, 8)
-    ref = golden.golden_iterate(x0, sp, 8, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+    _streamed_check(sp, (13, 17, 19), bc, 4, 2, 8, rng)
 
 
-def test_slab_temporal_periodic_lead(rng):
-    # 2D slab kernel, periodic d0 at k=8 with the default (synthesizing)
-    # tap mode — legal because synth only synthesizes the LANE boundary
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = S.jacobi5()
-    bc = DirichletBC.reference_default(2).with_periodic((0,))
-    x0 = rng.random((32, 40)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = PallasStencil(sp, (32, 40), sweeps_per_call=8, interpret=True)
-    out = m.iterate(g, 16)
-    ref = golden.golden_iterate(x0, sp, 16, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
-
-
-def test_registry_pallas_temporal_periodic_leading(rng):
-    # the pallas_temporal method (k=8 default) is available for grids
-    # whose periodic dims are all leading
+def test_registry_pallas_temporal_periodic_leading():
+    # the registry's streamed runner honours -k (temporal) on periodic
+    # leading dims
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic((0, 1))
     g = HaloGrid.create((16, 24, 20), halo=1, bc=bc)
-    cfg = RunConfig(size=(16, 24, 20), spec="jacobi7",
-                    methods=("pallas_temporal",))
-    runner = registry.get_runner("pallas_temporal", cfg, sp, g)
+    cfg = RunConfig(size=(16, 24, 20), spec="jacobi7", temporal=4,
+                    chunks=2, methods=("streamed",))
+    runner = registry.get_runner("streamed", cfg, sp, g)
+    assert runner.granularity == 4
     out = runner.iterate(g, 8)
     ref = golden.golden_iterate(np.zeros((16, 24, 20)), sp, 8, bc=bc)
     chk = golden.check_against_golden(np.asarray(out.interior()), ref)
     assert chk.ok, chk.message()
 
 
-def test_periodic_interior_shallower_than_temporal_halo_raises(rng):
-    # k*r wrap depth needs interior extent >= k*r in the periodic dim
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
+def test_periodic_interior_shallower_than_temporal_halo_raises():
+    # k*r wrap depth needs interior extent >= k*r in the periodic d0
+    from stencil_tpu.streaming import StreamedStencil
 
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic((0,))
-    g = HaloGrid.create((6, 16, 16), halo=1, bc=bc)
-    m = TiledPallasStencil(sp, (6, 16, 16), sweeps_per_call=8,
-                           interpret=True)
+    m = StreamedStencil(sp, (6, 16, 16), sweeps_per_call=8, chunks=1)
     with pytest.raises(ValueError, match="interior extent"):
-        m.iterate(g, 8)
+        m.iterate_host(np.zeros((6, 16, 16), np.float32), 8, bc=bc)
 
 
 # ---- sharded (ppermute halo) over the virtual device mesh --------------------
@@ -666,65 +518,21 @@ def test_checkpoint_dirichlet_roundtrip_unchanged(tmp_path, rng):
     assert not state.bc.any_periodic
 
 
-# ---- 3D slabs on the 2D slab kernel (direct API; round-4 review fixes) --------
-
-
-def test_slab_3d_lane_periodic_gates(rng):
-    # the lane dim of a 3D slab is dim 2 — the gate must track the RANK
-    # (a hardcoded rank-2 mask let this through and produced silently
-    # wrong results, round-4 review finding)
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = S.get_spec("jacobi7")
-    bc = DirichletBC.reference_default(3).with_periodic((2,))
-    g = HaloGrid.create((8, 8, 128), halo=1, bc=bc)
-    m = PallasStencil(sp, (8, 8, 128), sweeps_per_call=2, interpret=True)
-    with pytest.raises(ValueError, match="lane"):
-        m.iterate(g, 4)
-
-
-def test_slab_3d_middle_dim_periodic_gates_at_temporal(rng):
-    # the slab kernel's pins cover d0 only: a dynamic MIDDLE dim has no
-    # pin-disable hook (measured wrong at k=2) — must gate to k=1
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = S.get_spec("jacobi7")
-    bc = DirichletBC.reference_default(3).with_periodic((1,))
-    g = HaloGrid.create((16, 16, 128), halo=1, bc=bc)
-    m = PallasStencil(sp, (16, 16, 128), sweeps_per_call=2, interpret=True)
-    with pytest.raises(ValueError, match="middle"):
-        m.iterate(g, 4)
+# ---- 3D grids over a 2D mesh ----------------------------------------------------
 
 
 @pytest.mark.parametrize("dims", [(1,), (0,), (2,)])
-def test_slab_3d_periodic_k1_matches_golden(rng, dims):
-    from stencil_tpu.ops.pallas import PallasStencil
-
-    sp = S.get_spec("jacobi7")
-    bc = DirichletBC.reference_default(3).with_periodic(dims)
-    x0 = rng.random((16, 16, 128)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = PallasStencil(sp, (16, 16, 128), interpret=True,
-                      tap_mode="slice" if dims == (2,) else None)
-    out = m.iterate(g, 3)
-    ref = golden.golden_iterate(x0, sp, 3, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+def test_slab_3d_periodic_k1_matches_golden(dims):
+    # each dim periodic in turn: sharded x, sharded y, unsharded lane
+    _run_sharded_periodic(S.get_spec("jacobi7"), (16, 16, 40), (2, 2),
+                          ("x", "y", None), dims, 3, True)
 
 
 def test_slab_3d_periodic_d0_temporal_ok(rng):
-    # dynamic d0 keeps the full temporal path on 3D slabs (pins cover d0)
-    from stencil_tpu.ops.pallas import PallasStencil
-
+    # periodic d0 at streamed depth k=2 on a wide lane dim
     sp = S.get_spec("jacobi7")
     bc = DirichletBC.reference_default(3).with_periodic((0,))
-    x0 = rng.random((16, 16, 128)).astype(np.float32)
-    g = HaloGrid.from_interior(jnp.asarray(x0), halo=1, bc=bc)
-    m = PallasStencil(sp, (16, 16, 128), sweeps_per_call=2, interpret=True)
-    out = m.iterate(g, 4)
-    ref = golden.golden_iterate(x0, sp, 4, bc=bc)
-    chk = golden.check_against_golden(np.asarray(out.interior()), ref)
-    assert chk.ok, chk.message()
+    _streamed_check(sp, (16, 16, 128), bc, 2, 2, 4, rng)
 
 
 def test_cli_check_all_dynamic_bcs_is_not_vacuous(tmp_path):

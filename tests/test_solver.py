@@ -49,21 +49,21 @@ def test_progress_callback():
 
 
 def test_solver_with_temporal_pallas_kernel():
-    """The convergence loop composes with temporal blocking: check
-    intervals that are not multiples of k exercise the remainder-kernel
-    path inside a single solve."""
+    """The convergence loop composes with the streamed method's k sweeps
+    per chunk round trip: check intervals that are not multiples of k
+    exercise the remainder path inside a single solve."""
     from stencil_tpu.config import RunConfig
 
-    spec = get_spec("jacobi5")
-    grid = HaloGrid.create((24, 24), halo=1, dtype="float32")
-    cfg = RunConfig(size=(24, 24), spec="jacobi5",
-                    methods=("pallas_temporal",), temporal=4)
-    runner = registry.get_runner("pallas_temporal", cfg, spec, grid)
+    spec = get_spec("jacobi7")
+    grid = HaloGrid.create((12, 12, 12), halo=1, dtype="float32")
+    cfg = RunConfig(size=(12, 12, 12), spec="jacobi7",
+                    methods=("streamed",), temporal=4, chunks=2)
+    runner = registry.get_runner("streamed", cfg, spec, grid)
     res = solver.solve(runner, grid, tolerance=1e-6, check_every=150,
                        max_iterations=50_000)
     assert res.converged, res.summary()
     # cross-method: identical steady state as the xla solver result
-    _, _, xruner = _runner((24, 24))
+    xruner = registry.get_runner("xla", None, spec, grid)
     xres = solver.solve(xruner, grid, tolerance=1e-6, check_every=200,
                         max_iterations=50_000)
     np.testing.assert_allclose(

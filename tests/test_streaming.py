@@ -1,10 +1,10 @@
 """Differential tests for the out-of-core streamed method
-(``stencil_tpu.streaming``) in interpreter mode.
+(``stencil_tpu.streaming``).
 
 The streamed path must be ITERATION-ORDER EXACT: chunks within one
 outer step all read the previous iterate (ping-pong host buffers), and
-the kernel is the same tiled Pallas kernel — so the result matches the
-single-chip tiled method bit for bit, which is asserted alongside the
+each chunk runs the same XLA sweep as the in-core ``xla`` method — so the
+result matches it bit for bit, which is asserted alongside the
 float64-golden differential checks.
 """
 
@@ -13,31 +13,30 @@ import pytest
 
 from stencil_tpu.core.grid import DirichletBC, HaloGrid
 from stencil_tpu.core.spec import get_spec, star, weighted
-from stencil_tpu.ops import golden
-from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
+from stencil_tpu.ops import golden, xla
 from stencil_tpu.streaming import (
     StreamedStencil, auto_chunks, host_halo_grid,
 )
 
 
 def _run(spec, shape, k, chunks, iters, dtype="float32", bc=None,
-         tap_mode=None, seed=False):
+         seed=False):
     bc = bc if bc is not None else DirichletBC.reference_default(3)
     if seed or all(bc.dynamic_mask(3)):
         x0 = np.random.default_rng(0).random(shape).astype(dtype)
     else:
         x0 = np.zeros(shape, dtype)
     m = StreamedStencil(spec, shape, dtype=dtype, sweeps_per_call=k,
-                        chunks=chunks, interpret=True, tap_mode=tap_mode)
+                        chunks=chunks)
     out = m.iterate_host(x0, iters, bc=bc)
     return x0, out
 
 
 def _check(spec, shape, k, chunks, iters, dtype="float32", bc=None,
-           tap_mode=None, atol=5e-6, seed=False):
+           atol=5e-6, seed=False):
     bc = bc if bc is not None else DirichletBC.reference_default(3)
     x0, out = _run(spec, shape, k, chunks, iters, dtype=dtype, bc=bc,
-                   tap_mode=tap_mode, seed=seed)
+                   seed=seed)
     ref = golden.golden_iterate(
         np.asarray(x0, np.float64), spec, iters, bc=bc
     )
@@ -77,17 +76,21 @@ def test_ragged_chunks_and_shape():
     _check(get_spec("jacobi7"), (19, 13, 21), 2, 3, iters=4)
 
 
+def _xla_ref(grid, spec, iters):
+    import jax.numpy as jnp
+
+    return xla.iterate_dynamic(grid, spec, jnp.int32(iters))
+
+
 def test_bitwise_vs_single_chip_tiled():
-    # same kernel, same per-point tap order, ping-pong outer steps:
+    # same sweep, same per-point tap order, ping-pong outer steps:
     # streaming must be invisible in the bits
     spec = get_spec("jacobi7")
     shape = (18, 16, 20)
     for k, iters in ((1, 5), (4, 8)):
         grid = HaloGrid.create(shape, halo=spec.radius)
-        ref = TiledPallasStencil(spec, shape, sweeps_per_call=k,
-                                 interpret=True).iterate(grid, iters)
-        m = StreamedStencil(spec, shape, sweeps_per_call=k, chunks=3,
-                            interpret=True)
+        ref = _xla_ref(grid, spec, iters)
+        m = StreamedStencil(spec, shape, sweeps_per_call=k, chunks=3)
         out = m.iterate_host(np.zeros(shape, np.float32), iters,
                              bc=grid.bc)
         np.testing.assert_array_equal(out, np.asarray(ref.interior()))
@@ -118,7 +121,7 @@ def test_box_dynamic_corners_chunked():
 def test_dynamic_lane_k1_slice():
     bc = DirichletBC.reference_default(3).with_periodic([2])
     _check(get_spec("jacobi7"), (16, 16, 20), 1, 2, iters=4, bc=bc,
-           tap_mode="slice", seed=True)
+           seed=True)
 
 
 def test_bf16_smoke():
@@ -127,15 +130,13 @@ def test_bf16_smoke():
 
 
 def test_iterate_adapter_roundtrip():
-    # HaloGrid in -> host HaloGrid out, equal to the tiled method
+    # HaloGrid in -> host HaloGrid out, equal to the in-core xla method
     spec = get_spec("jacobi7")
     shape = (16, 16, 20)
     grid = HaloGrid.create(shape, halo=spec.radius)
-    m = StreamedStencil(spec, shape, sweeps_per_call=2, chunks=2,
-                        interpret=True)
+    m = StreamedStencil(spec, shape, sweeps_per_call=2, chunks=2)
     out = m.iterate(grid, 4)
-    ref = TiledPallasStencil(spec, shape, sweeps_per_call=2,
-                             interpret=True).iterate(grid, 4)
+    ref = _xla_ref(grid, spec, 4)
     assert isinstance(out.data, np.ndarray)  # never a device array
     np.testing.assert_array_equal(
         np.asarray(out.interior()), np.asarray(ref.interior()))
@@ -151,7 +152,8 @@ def test_host_halo_grid_matches_device_grid():
 def test_auto_chunks_small_hbm():
     # a simulated 2 MiB device forces chunking; correctness must hold
     spec = get_spec("jacobi7")
-    c = auto_chunks(spec, (18, 16, 140), "float32", 1, hbm=2 << 20)
+    c = auto_chunks(spec, (18, 16, 140), "float32", 1,
+                    device_bytes=2 << 20)
     assert c > 1
     _check(spec, (18, 16, 140), 1, c, iters=3)
 
@@ -159,28 +161,25 @@ def test_auto_chunks_small_hbm():
 def test_auto_chunks_env_override(monkeypatch):
     monkeypatch.setenv("STENCIL_TPU_HBM_MB", "2")
     spec = get_spec("jacobi7")
-    m = StreamedStencil(spec, (18, 16, 140), sweeps_per_call=1,
-                        interpret=True)
+    m = StreamedStencil(spec, (18, 16, 140), sweeps_per_call=1)
     assert m.num_chunks > 1
 
 
 def test_gate_chunk_shallower_than_kr():
     with pytest.raises(ValueError, match="k\\*r"):
         StreamedStencil(get_spec("jacobi7"), (8, 16, 20),
-                        sweeps_per_call=8, chunks=4, interpret=True)
+                        sweeps_per_call=8, chunks=4)
 
 
 def test_gate_asymmetric_neumann_deep_k():
     asym = weighted(3, [((0, 0, 0), 0.5), ((1, 0, 0), 0.5)],
                     name="asym3d")
     bc = DirichletBC.reference_default(3).with_neumann([0])
-    m = StreamedStencil(asym, (16, 16, 20), sweeps_per_call=2, chunks=2,
-                        interpret=True)
+    m = StreamedStencil(asym, (16, 16, 20), sweeps_per_call=2, chunks=2)
     with pytest.raises(ValueError, match="mirror-symmetric"):
         m.iterate_host(np.zeros((16, 16, 20), np.float32), 4, bc=bc)
     # and the k=1 run it suggests works
-    m1 = StreamedStencil(asym, (16, 16, 20), sweeps_per_call=1, chunks=2,
-                         interpret=True)
+    m1 = StreamedStencil(asym, (16, 16, 20), sweeps_per_call=1, chunks=2)
     out = m1.iterate_host(
         np.random.default_rng(0).random((16, 16, 20)).astype(np.float32),
         3, bc=bc)
@@ -188,18 +187,18 @@ def test_gate_asymmetric_neumann_deep_k():
 
 
 def test_gate_dynamic_lane_needs_k1():
-    bc = DirichletBC.reference_default(3).with_periodic([2])
-    m = StreamedStencil(get_spec("jacobi7"), (16, 16, 20),
-                        sweeps_per_call=2, chunks=2, interpret=True,
-                        tap_mode="slice")
-    with pytest.raises(ValueError, match="lane"):
-        m.iterate_host(np.zeros((16, 16, 20), np.float32), 4, bc=bc)
+    # the XLA chunk step refreshes the lane dim's ghosts after every
+    # sweep, so a periodic/Neumann lane dim runs at any k (the former
+    # gate is gone) and matches the golden
+    bc = (DirichletBC.reference_default(3).with_periodic([2])
+          .with_neumann([1]))
+    _check(get_spec("jacobi27"), (16, 16, 20), 2, 2, iters=5, bc=bc,
+           seed=True)
 
 
 def test_gate_2d_refused():
     with pytest.raises(ValueError, match="3D-only"):
-        StreamedStencil(get_spec("jacobi5"), (64, 64), chunks=2,
-                        interpret=True)
+        StreamedStencil(get_spec("jacobi5"), (64, 64), chunks=2)
 
 
 def test_registry_runner():

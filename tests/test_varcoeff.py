@@ -146,54 +146,44 @@ def test_mass_conservation_periodic():
     assert abs(m1 - m0) < 1e-6, (m0, m1)
 
 
-# ---- Pallas variable-coefficient kernel (tap_mode='coeff') ----------
+# ---- the variable-coefficient runner (XLA field sweep) ---------------
 
 
-@pytest.mark.parametrize("k,iters", [(1, 3), (2, 4), (4, 8), (3, 7)])
-def test_pallas_coeff_matches_golden_3d(k, iters):
-    """The tiled coeff kernel (streamed a(x), in-register harmonic
-    face weights, temporal blocking) against the float64 golden field
-    model — ragged grid, nonzero reference walls, incl. a remainder
-    call (iters % k != 0)."""
-    import jax.numpy as jnp
-
-    from stencil_tpu.core.spec import get_spec
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
+def _runner_vs_golden(shape, a, bc, iters, atol=5e-5):
     rng = np.random.default_rng(21)
-    shape = (10, 12, 14)
-    a = rng.uniform(0.2, 3.0, size=shape)
-    bc = DirichletBC.reference_default(3)
     het = HeterogeneousDiffusion(shape=shape, a=a, bc=bc)
-    lam = het.stable_dt / het.h ** 2
     offsets, fields = het.tap_fields()
     u0 = rng.normal(size=shape).astype(np.float32)
-    m = TiledPallasStencil(get_spec("jacobi7"), shape, "float32",
-                           sweeps_per_call=k, interpret=True,
-                           coeff=a, coeff_scales=(lam, 1.0, -lam))
     g = HaloGrid.from_interior(np.asarray(u0), halo=1, bc=bc)
-    got = np.asarray(m.iterate(g, iters).interior(), np.float64)
+    got = np.asarray(het.runner().iterate(g, iters).interior(), np.float64)
     want = golden.golden_iterate_fields(u0, offsets, fields, iters,
                                         bc=bc)
-    np.testing.assert_allclose(got, want, atol=5e-5, rtol=0)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("iters", [3, 4, 7, 8])
+def test_pallas_coeff_matches_golden_3d(iters):
+    """HeterogeneousDiffusion.runner against the float64 golden field
+    model — ragged grid, nonzero reference walls."""
+    shape = (10, 12, 14)
+    a = np.random.default_rng(20).uniform(0.2, 3.0, size=shape)
+    _runner_vs_golden(shape, a, DirichletBC.reference_default(3), iters)
 
 
 def test_pallas_coeff_uniform_limit_matches_spec_kernel():
-    """a = const: the coeff kernel must agree with the constant-spec
-    tiled kernel (rotacc taps) on the same update — the uniform limit
-    cross-check between the two kernel families."""
-    from stencil_tpu.core.spec import get_spec, weighted
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
+    """a = const: the field runner must agree with the constant-spec
+    XLA sweep on the same update — the uniform-limit cross-check
+    between the per-point and static-weight paths."""
+    import jax.numpy as jnp
+
+    from stencil_tpu.core.spec import weighted
 
     shape = (9, 16, 12)
-    a0, lam = 0.7, 0.05
+    a0 = 0.7
     bc = DirichletBC.reference_default(3)
-    rng = np.random.default_rng(22)
-    u0 = rng.normal(size=shape).astype(np.float32)
-    coeff = TiledPallasStencil(
-        get_spec("jacobi7"), shape, "float32", sweeps_per_call=2,
-        interpret=True, coeff=np.full(shape, a0),
-        coeff_scales=(lam, 1.0, -lam))
+    het = HeterogeneousDiffusion(shape=shape, a=np.full(shape, a0), bc=bc)
+    lam = het.stable_dt / het.h ** 2
+    u0 = np.random.default_rng(22).normal(size=shape).astype(np.float32)
     taps = [((0, 0, 0), 1.0 - 6 * lam * a0)]
     for d in range(3):
         for s in (-1, 1):
@@ -201,83 +191,46 @@ def test_pallas_coeff_uniform_limit_matches_spec_kernel():
             off[d] = s
             taps.append((tuple(off), lam * a0))
     spec = weighted(3, taps, name="uniform_ftcs")
-    const = TiledPallasStencil(spec, shape, "float32",
-                               sweeps_per_call=2, interpret=True)
     g = HaloGrid.from_interior(np.asarray(u0), halo=1, bc=bc)
-    got = np.asarray(coeff.iterate(g, 6).interior(), np.float64)
-    want = np.asarray(const.iterate(g, 6).interior(), np.float64)
+    got = np.asarray(het.runner().iterate(g, 6).interior(), np.float64)
+    want = np.asarray(xla.iterate_dynamic(g, spec, jnp.int32(6))
+                      .interior(), np.float64)
     np.testing.assert_allclose(got, want, atol=3e-5, rtol=0)
 
 
 def test_pallas_coeff_dynamic_leading_dims():
-    """Periodic d0 + Neumann d1 on the coeff kernel at k>1: the
-    coefficient pads wrap/mirror (pad_coeff) and the iterate's deep
-    ghost refresh handles u — against the golden field model."""
-    import jax.numpy as jnp
-
-    from stencil_tpu.core.spec import get_spec
-    from stencil_tpu.ops.pallas_tiled import TiledPallasStencil
-
-    rng = np.random.default_rng(23)
+    """Periodic d0 + Neumann d1 + Dirichlet lane on the field runner
+    against the golden field model."""
     shape = (10, 12, 14)
-    a = rng.uniform(0.2, 3.0, size=shape)
+    a = np.random.default_rng(23).uniform(0.2, 3.0, size=shape)
     bc = DirichletBC.zero(3).with_periodic((0,)).with_neumann((1,))
-    het = HeterogeneousDiffusion(shape=shape, a=a, bc=bc)
-    lam = het.stable_dt / het.h ** 2
-    offsets, fields = het.tap_fields()
-    u0 = rng.normal(size=shape).astype(np.float32)
-    m = TiledPallasStencil(get_spec("jacobi7"), shape, "float32",
-                           sweeps_per_call=2, interpret=True,
-                           coeff=a, coeff_scales=(lam, 1.0, -lam))
-    g = HaloGrid.from_interior(np.asarray(u0), halo=1, bc=bc)
-    got = np.asarray(m.iterate(g, 6).interior(), np.float64)
-    want = golden.golden_iterate_fields(u0, offsets, fields, 6, bc=bc)
-    np.testing.assert_allclose(got, want, atol=5e-5, rtol=0)
+    _runner_vs_golden(shape, a, bc, 6)
 
 
 def test_runner_pallas_matches_xla_runner():
-    """HeterogeneousDiffusion.runner: the pallas_tiled method and the
-    XLA method run the same FTCS update."""
-    rng = np.random.default_rng(24)
+    """A dynamic LANE dim (Neumann d2, periodic d1) on the field runner:
+    the rank-general XLA path takes every BC on every dim."""
     shape = (12, 13, 15)
-    a = rng.uniform(0.5, 2.0, size=shape)
-    het = HeterogeneousDiffusion(
-        shape=shape, a=a, bc=DirichletBC.reference_default(3))
-    u0 = rng.normal(size=shape).astype(np.float32)
-    g = het.initial_grid(u0)
-    got = np.asarray(
-        het.runner(method="pallas_tiled", sweeps_per_call=3,
-                   interpret=True).iterate(g, 6).interior(),
-        np.float64)
-    want = np.asarray(het.runner(method="xla").iterate(g, 6).interior(),
-                      np.float64)
-    np.testing.assert_allclose(got, want, atol=3e-5, rtol=0)
+    a = np.random.default_rng(24).uniform(0.5, 2.0, size=shape)
+    bc = DirichletBC.zero(3).with_periodic((1,)).with_neumann((2,))
+    _runner_vs_golden(shape, a, bc, 6, atol=3e-5)
 
 
 def test_coeff_mode_gates():
-    from stencil_tpu.core.spec import get_spec
-    from stencil_tpu.ops.pallas_tiled import (
-        TiledPallasStencil, make_tiled_plan,
-    )
-
-    spec = get_spec("jacobi7")
-    with pytest.raises(ValueError, match="coeff_scales"):
-        make_tiled_plan(spec, (8, 8, 8), tap_mode="coeff")
-    with pytest.raises(ValueError, match="4-byte"):
-        make_tiled_plan(spec, (16, 16, 16), dtype="bfloat16",
-                        tap_mode="coeff", coeff_scales=(1.0, 1.0, -1.0))
-    with pytest.raises(ValueError, match="radius-1"):
-        make_tiled_plan(get_spec("laplace3d_ho"), (16, 16, 16),
-                        tap_mode="coeff",
-                        coeff_scales=(1.0, 1.0, -1.0))
-    with pytest.raises(ValueError, match="coeff_scales"):
-        TiledPallasStencil(spec, (8, 8, 8), coeff=np.ones((8, 8, 8)))
+    """Malformed coefficient fields and steps are refused."""
+    shape = (8, 8, 8)
+    with pytest.raises(ValueError, match="shape"):
+        HeterogeneousDiffusion(shape=shape, a=np.ones((8, 8, 9)))
+    with pytest.raises(ValueError, match="positive"):
+        HeterogeneousDiffusion(shape=shape, a=np.zeros(shape))
+    het = HeterogeneousDiffusion(shape=shape, a=np.ones(shape), dt=1.0)
+    with pytest.raises(ValueError, match="unstable"):
+        het.runner()
 
 
 def test_varcoeff_registry_method_cli():
-    """The marching coeff kernel is CLI-reachable as method 'varcoeff'
-    (round-5: no kernel capability reachable only by writing Python):
-    driver check rides the runner's field-golden hook."""
+    """Variable-coefficient marching is CLI-reachable as method
+    'varcoeff': the driver check rides the runner's field-golden hook."""
     import io
 
     from stencil_tpu.cli import run_all
@@ -290,7 +243,7 @@ def test_varcoeff_registry_method_cli():
     (rec,) = run_all(cfg, out=out)
     assert rec["check"]["ok"], out.getvalue()
     assert rec["plan"]["contrast"] == 30.0
-    # 2D rides the XLA field path under the same method name
+    # 2D runs under the same method name
     cfg2 = RunConfig(size=(24, 16), iterations=5, spec="jacobi5",
                      methods=("varcoeff",), contrast=10.0, check=True)
     (rec2,) = run_all(cfg2, out=out)
